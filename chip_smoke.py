@@ -1,0 +1,578 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``rmqtt_tpu_torch``) on one GPU.
+
+    python3 chip_smoke.py            # cfg3 scale: 1M filters, 32,768 topics
+
+Phases, each of which fails the run (nonzero exit, no result line):
+
+1. device — requires CUDA; prints the card's name and power limit;
+2. build — compiles ``rmqtt_tpu_torch/csrc/match_words.cu`` with nvcc and
+   prints the build time and the ptxas register / shared-memory / spill
+   lines;
+3. kernels — each match-words kernel against its plain PyTorch twin
+   (``torch.equal``) at cfg3's shapes (B=16384, NC=32) on the real cfg3
+   table and on random tiles, plus edge cases (odd B, NC=1, padded topics,
+   chunk 0, $-topics, a 2-byte level); each kernel and twin timed with
+   CUDA events;
+4. cfg3 end to end through ``TorchRouter`` on packed tiles: 1M ``gen_mixed``
+   filters (seed 0), 32,768 ``gen_topics_uniform`` topics in batches of
+   16,384, pipelined (depth 2) and serial; a 2,048-topic sample checked
+   against the ``TopicTree`` oracle, every topic against the same router
+   path run with the plain words twin on the card; 2,000 removes + 2,000
+   adds (delta uploads), then the sample again;
+5. the same topics through a ``TorchRouter`` on legacy tiles
+   (``RMQTT_PACKED=0``), equal to phase 4's results;
+6. one pipelined packed-tile pass under ``torch.profiler``: the device's
+   busy share and its time by kernel;
+7. the kernel summary line (launches on the router paths, equality with
+   the plain twins, times beside the bound).
+
+The tables and the ``TopicTree`` oracle are built before phase 3, and the
+garbage collector is then frozen, as ``bench.py`` does for the same tables.
+The last line is ``{"ok": true, "device": {...}}``. Sizes can be cut with
+the options (for a quick look); the defaults are cfg3's.
+"""
+
+from __future__ import annotations
+
+import argparse
+import gc
+import json
+import os
+import random
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from rmqtt_tpu_torch.bench.workloads import gen_mixed, gen_topics_uniform
+from rmqtt_tpu_torch.core.trie import TopicTree
+from rmqtt_tpu_torch.ops import match_words as MW
+from rmqtt_tpu_torch.ops._build import SOURCE, kernel_library
+from rmqtt_tpu_torch.ops.encode import PackedLayout, group_byte_planes
+from rmqtt_tpu_torch.router import Id, SubscriptionOptions, TorchRouter
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
+SCALAR_OPS_PER_S = 67e12  # H100 SXM non-tensor (float32) rate; int32 is not faster
+KERNEL_SOURCE = "rmqtt_tpu_torch/csrc/match_words.cu"
+REPLACES = {
+    "match_words_packed": "rmqtt_tpu/ops/pallas_match.py:288",
+    "match_words_legacy": "rmqtt_tpu/ops/pallas_match.py:141",
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# ----------------------------------------------------------------- timing
+class GcTime:
+    """Wall time the cyclic garbage collector spends and the full
+    (generation 2) collections it runs, from ``gc.callbacks`` (registered
+    by :meth:`install`, in ``main``)."""
+
+    def __init__(self) -> None:
+        self.ns = 0
+        self.full = 0
+        self._t0 = 0
+
+    def install(self) -> None:
+        gc.callbacks.append(self._callback)
+
+    def _callback(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._t0 = time.perf_counter_ns()
+        else:
+            self.ns += time.perf_counter_ns() - self._t0
+            self.full += info["generation"] == 2
+
+
+GC_TIME = GcTime()
+
+
+def time_cuda(fn, reps: int, warmup: int = 2) -> float:
+    """Mean ms per call over ``reps`` calls, by CUDA events after warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def words_bound_ms(tiles, ttok, chunk_ids, nlvl: int):
+    """Least time for one words call on these inputs: the larger of the
+    bytes it must move (each referenced tile, each input read once, the
+    words written once) over the memory rate and its integer operations
+    (~(2*nlvl+6) per row tested) over the scalar rate. Chunk 0 is the
+    table's empty chunk: a slot naming it (padding) needs no tile read and
+    no row test, only its zero words."""
+    b, nc = chunk_ids.shape
+    tile_bytes = tiles[0].numel() * tiles.element_size()
+    real = chunk_ids != 0
+    used = torch.unique(chunk_ids[real]).numel()
+    nbytes = (used * tile_bytes + chunk_ids.numel() * 4 + ttok.numel() * 4
+              + 2 * b * 4 + b * nc * MW.WORDS_PER_CHUNK * 4)
+    ops = int(real.sum()) * MW.CHUNK * (2 * nlvl + 6)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / SCALAR_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# ------------------------------------------------------------ phase 1, 2
+def phase_device() -> dict:
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    log(f"[1] device: {name}, {torch.cuda.device_count()} visible; torch "
+        f"{torch.__version__} cuda {torch.version.cuda}")
+    log(smi)
+    return {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}
+
+
+def phase_build() -> None:
+    t0 = time.perf_counter()
+    lib = kernel_library()
+    log(f"[2] build: {SOURCE.name} -> {lib.path.name} in {lib.build_s:.2f}s "
+        f"(load {time.perf_counter() - t0:.2f}s)")
+    for line in lib.log.splitlines():
+        if any(k in line for k in ("registers", "spill", "smem", "stack frame",
+                                   "Compiling entry")):
+            log("    " + line.strip())
+
+
+# ---------------------------------------------------------------- phase 3
+def _random_packed(rng: np.random.Generator, layout: PackedLayout, n: int):
+    """Random packed tiles whose bytes fall in small ranges so that rows do
+    match: level bytes 0..7 (1 = '+'), 2-byte levels with high bytes 0..1,
+    meta = flen+1 in 0..7 | has_hash<<5 | first_wild<<6. Chunk 0 is random
+    too — the kernel must agree with its twin on any tile."""
+    planes = np.zeros((n * MW.CHUNK, layout.planes), dtype=np.uint8)
+    p = 0
+    for w in layout.widths:
+        planes[:, p] = rng.integers(0, 8, len(planes))
+        p += 1
+        if w == 2:
+            planes[:, p] = rng.integers(0, 2, len(planes))
+            p += 1
+    planes[:, p] = (rng.integers(0, 8, len(planes))
+                    | (rng.integers(0, 2, len(planes)) << 5)
+                    | (rng.integers(0, 2, len(planes)) << 6))
+    lanes = group_byte_planes(planes, layout.groups)
+    return np.ascontiguousarray(
+        lanes.reshape(n, MW.CHUNK, layout.groups).transpose(0, 2, 1)
+        .reshape(n, layout.groups * MW.CHUNK))
+
+
+def _random_legacy(rng: np.random.Generator, lvl: int, n: int, dtype):
+    tiles = np.zeros((n, lvl + 3, MW.CHUNK), dtype=dtype)
+    tiles[:, :lvl] = rng.integers(0, 8, (n, lvl, MW.CHUNK))
+    flen = rng.integers(-1, lvl + 1, (n, MW.CHUNK))
+    hh = rng.integers(0, 2, (n, MW.CHUNK))
+    tiles[:, lvl] = flen
+    tiles[:, lvl + 1] = np.maximum(flen - hh, 0)
+    tiles[:, lvl + 2] = hh | (rng.integers(0, 2, (n, MW.CHUNK)) << 1)
+    return tiles
+
+
+def _random_inputs(rng: np.random.Generator, b: int, nc: int, nlvl: int,
+                   nchunks: int, hi_tok: int, dev):
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)  # noqa: E731
+    tlen = rng.integers(1, nlvl + 2, b)
+    tlen[rng.random(b) < 0.1] = -2  # padded topics
+    return (put(rng.integers(0, hi_tok, (b, nlvl))), put(tlen),
+            put(rng.random(b) < 0.3),  # $-topics
+            put(rng.integers(0, nchunks, (b, nc))))  # includes chunk 0
+
+
+def _compare(name: str, kernel, plain, args, stats: dict) -> None:
+    got = kernel(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) \
+        if got.numel() else 0
+    stats["max_abs_err"] = max(stats.get("max_abs_err", 0), err)
+    stats["cases"] = stats.get("cases", 0) + 1
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name}: kernel words differ from the plain twin "
+                             f"(max abs err {err})")
+    log(f"    {name}: equal, {int((got != 0).sum())} nonzero words of "
+        f"{got.numel()}")
+
+
+def phase_kernels(packed_router: TorchRouter, legacy_router: TorchRouter,
+                  topics, batch: int, dev) -> dict:
+    """Each kernel against its plain twin; timings at cfg3's shapes on the
+    real table."""
+    log("[3] kernels against their plain twins")
+    rng = np.random.default_rng(3)
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)  # noqa: E731
+    stats = {"match_words_packed": {}, "match_words_legacy": {}}
+
+    # --- packed, real cfg3 table
+    pm = packed_router.matcher
+    st = pm._refresh()
+    t = packed_router.table
+    ttok, tlen, tdollar, cids, nc = t.encode_topics(topics[:batch], pad_batch_to=batch)
+    lay, tt = t.translate_packed(ttok)
+    assert lay == st.layout, (lay, st.layout)
+    real_p = (st.tiles, put(tt), put(tlen), put(tdollar), put(cids))
+    log(f"    real packed table: tiles {tuple(st.tiles.shape)} layout "
+        f"{lay.widths}, B={batch} NC={nc}")
+    sp = stats["match_words_packed"]
+    kern_p = lambda *a: MW.match_words_packed(*a, layout=lay)  # noqa: E731
+    plain_p = lambda *a: MW.match_words_packed_plain(*a, layout=lay)  # noqa: E731
+    _compare("packed real B=%d NC=%d" % (batch, nc), kern_p, plain_p, real_p, sp)
+    sp["ms"] = time_cuda(lambda: kern_p(*real_p), reps=50)
+    sp["plain_ms"] = time_cuda(lambda: plain_p(*real_p), reps=3, warmup=1)
+    sp["bound_ms"], sp["bound_by"] = words_bound_ms(st.tiles, real_p[1], real_p[4], lay.nlvl)
+    # packed, random tiles incl. a 2-byte level; edge shapes
+    for widths, b, nck in (((1, 1, 1, 1, 1, 2), batch, nc), ((2, 1, 2), 1023, 1),
+                           ((1,), 7, 5), ((1, 2, 1, 1, 1, 1, 1, 1), 4097, 3)):
+        layr = PackedLayout(widths)
+        tiles = torch.from_numpy(_random_packed(rng, layr, 512)).to(dev)
+        args = (tiles, *_random_inputs(rng, b, nck, layr.nlvl, 512, 8, dev))
+        _compare(f"packed random widths={widths} B={b} NC={nck}",
+                 lambda *a: MW.match_words_packed(*a, layout=layr),
+                 lambda *a: MW.match_words_packed_plain(*a, layout=layr), args, sp)
+    # a 2-byte level on the real table: topics whose level-5 tokens use
+    # the high byte (local ids >= 256)
+    hi = tt.copy()
+    hi[:, -1] = rng.integers(256, 400, len(hi))
+    _compare("packed real, 2-byte level ids",
+             kern_p, plain_p, (st.tiles, put(hi), *real_p[2:]), sp)
+
+    # --- legacy, real cfg3 table (int16) and as int32
+    lm = legacy_router.matcher
+    lst = lm._refresh()
+    lt = legacy_router.table
+    ltok, ltlen, ltd, lcids, lnc = lt.encode_topics(topics[:batch], pad_batch_to=batch)
+    real_l = (lst.tiles, put(ltok), put(ltlen), put(ltd), put(lcids))
+    log(f"    real legacy table: tiles {tuple(lst.tiles.shape)} {lst.tiles.dtype}")
+    sl = stats["match_words_legacy"]
+    _compare(f"legacy real {lst.tiles.dtype} B={batch} NC={lnc}",
+             MW.match_words_legacy, MW.match_words_legacy_plain, real_l, sl)
+    _compare("legacy real as int32", MW.match_words_legacy,
+             MW.match_words_legacy_plain,
+             (lst.tiles.to(torch.int32).contiguous(), *real_l[1:]), sl)
+    sl["ms"] = time_cuda(lambda: MW.match_words_legacy(*real_l), reps=50)
+    sl["plain_ms"] = time_cuda(lambda: MW.match_words_legacy_plain(*real_l), reps=3,
+                               warmup=1)
+    sl["bound_ms"], sl["bound_by"] = words_bound_ms(lst.tiles, real_l[1], real_l[4],
+                                                    lst.tiles.shape[1] - 3)
+    for dtype, b, nck in ((np.int16, batch, nc), (np.int32, batch, nc),
+                          (np.int16, 1023, 1), (np.int32, 9, 4)):
+        tiles = torch.from_numpy(_random_legacy(rng, 8, 512, dtype)).to(dev)
+        args = (tiles, *_random_inputs(rng, b, nck, 8, 512, 8, dev))
+        _compare(f"legacy random {np.dtype(dtype).name} B={b} NC={nck}",
+                 MW.match_words_legacy, MW.match_words_legacy_plain, args, sl)
+    for name, s in stats.items():
+        log(f"    {name}: {s['ms']:.4f} ms (plain {s['plain_ms']:.3f} ms, bound "
+            f"{s['bound_ms']:.4f} ms by {s['bound_by']}) over {s['cases']} equal cases")
+    return stats
+
+
+# ------------------------------------------------------------- phase 4, 5
+def build_router(filters, device, packed: bool) -> TorchRouter:
+    old = os.environ.get("RMQTT_PACKED")
+    os.environ["RMQTT_PACKED"] = "1" if packed else "0"
+    try:
+        router = TorchRouter(device=device)
+    finally:
+        if old is None:
+            del os.environ["RMQTT_PACKED"]
+        else:
+            os.environ["RMQTT_PACKED"] = old
+    opts = SubscriptionOptions()
+    t0 = time.perf_counter()
+    for i, f in enumerate(filters):
+        router.add(f, Id(1, f"c{i}"), opts)
+    router.table.compact()  # the steady layout; no background rebuild mid-run
+    router.matcher._refresh()
+    log(f"    table ({'packed' if packed else 'legacy'}): {len(filters)} filters, "
+        f"{router.table.nchunks} chunks, built + compacted + uploaded in "
+        f"{time.perf_counter() - t0:.2f}s; uploaded {router.matcher.upload_bytes} B; "
+        f"{router.matcher.hbm_breakdown()}")
+    return router
+
+
+def _routed_filters(raw) -> list:
+    """The matched filters of one routed topic, from its relations (each
+    filter of this workload has one subscriber and no $share group)."""
+    out, shared = raw
+    return sorted([r.topic_filter for rels in out.values() for r in rels]
+                  + [tf for _group, tf in shared])
+
+
+def route_all(router: TorchRouter, topics, batch: int, depth: int,
+              matcher_only: bool = False):
+    """Route ``topics`` in ``batch``-sized batches through the router's
+    entry points ``submit_batch_raw`` / ``complete_batch_raw`` (matching
+    plus the relations expand), keeping up to ``depth`` batches in flight.
+    ``matcher_only`` times the matcher's ``match_submit`` /
+    ``match_complete`` instead, without the expand. → (per-topic results:
+    matched filter lists, or fid arrays when ``matcher_only``; seconds;
+    per-batch ms; the garbage collector's time and full collections)."""
+    m = router.matcher
+    if matcher_only:
+        batches = [topics[i:i + batch] for i in range(0, len(topics), batch)]
+        submit, complete = m.match_submit, m.match_complete
+    else:
+        batches = [[(None, t) for t in topics[i:i + batch]]
+                   for i in range(0, len(topics), batch)]
+        submit = lambda items: router.submit_batch_raw(items)[1]  # noqa: E731
+        complete = router.complete_batch_raw
+    out, inflight, per_batch = [], [], []
+    if m.device.type == "cuda":
+        torch.cuda.synchronize(m.device)
+    gc0, full0 = GC_TIME.ns, GC_TIME.full
+    t0 = time.perf_counter()
+    for bt in batches:
+        inflight.append((time.perf_counter(), submit(bt)))
+        if len(inflight) >= depth:
+            ts, h = inflight.pop(0)
+            out.extend(complete(h))
+            per_batch.append((time.perf_counter() - ts) * 1e3)
+    for ts, h in inflight:
+        out.extend(complete(h))
+        per_batch.append((time.perf_counter() - ts) * 1e3)
+    if m.device.type == "cuda":
+        torch.cuda.synchronize(m.device)
+    secs = time.perf_counter() - t0
+    gc_note = (f"gc {(GC_TIME.ns - gc0) / 1e6:.3f} ms, "
+               f"{GC_TIME.full - full0} full collections")
+    if not matcher_only:
+        out = [_routed_filters(raw) for raw in out]
+    return out, secs, per_batch, gc_note
+
+
+def _log_pass(what: str, n: int, secs: float, per_batch, gc_note: str) -> None:
+    log(f"    {what}: {n} topics in {secs * 1e3:.3f} ms = {n / secs:.1f} topics/s; "
+        f"per-batch ms {[round(x, 3) for x in per_batch]}; {gc_note}")
+
+
+def profile_device(fn):
+    """Run ``fn`` under ``torch.profiler`` → (device busy share of the wall
+    time, wall s, [(name, device ms, count)] by device time). The profiler
+    adds host overhead, so the busy share it gives is a lower bound."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us:
+            rows.append((e.key, us / 1e3, e.count))
+    rows.sort(key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in rows)
+    return busy_ms / 1e3 / wall, wall, rows
+
+
+def check_oracle(tree: TopicTree, topics, got, what: str) -> None:
+    for topic, g in zip(topics, got):
+        want = sorted(v for _lv, vs in tree.matches(topic) for v in vs)
+        if g != want:
+            raise AssertionError(f"{what}: {topic!r} routed {g[:8]}... expected "
+                                 f"{want[:8]}... ({len(g)} vs {len(want)})")
+    log(f"    {what}: {len(topics)} topics equal to the TopicTree oracle "
+        f"({sum(len(g) for g in got)} routes)")
+
+
+def phase_cfg3(router: TorchRouter, tree: TopicTree, filters, topics, batch: int,
+               sample: int, churn: int, seed: int) -> list:
+    """→ the per-topic matched filter lists, as routed before the churn."""
+    log("[4] cfg3 end to end through TorchRouter (packed tiles)")
+    m = router.matcher
+    n = len(topics)
+    # each pass's results are checked and dropped before the next pass: a
+    # broker keeps no results across batches, and every retained result
+    # is heap the garbage collector's full collections rescan
+    kernel_filters, *timing = route_all(router, topics, batch, 2)
+    _log_pass("cold pass (empty candidate cache), pipelined depth 2", n, *timing)
+    for depth in (2, 2, 1, 1):
+        rows, *timing = route_all(router, topics, batch, depth)
+        _log_pass("pipelined depth 2" if depth == 2 else "serial", n, *timing)
+        same = rows == kernel_filters
+        del rows
+        if not same:
+            raise AssertionError("repeated passes routed differently")
+    log(f"    {sum(len(r) for r in kernel_filters)} routes per pass")
+    for depth in (2, 1):
+        rows, *timing = route_all(router, topics, batch, depth, matcher_only=True)
+        del rows
+        _log_pass(f"matcher only (no relations expand), "
+                  f"{'pipelined depth 2' if depth == 2 else 'serial'}", n, *timing)
+    n0 = MW.match_words_packed.launches
+    m.match(topics[:batch])
+    log(f"    launches for one batch of {batch}: "
+        f"{MW.match_words_packed.launches - n0} (one per NC-split bucket)")
+    m.stage_timing = True
+    m.stage_ns = dict.fromkeys(m.stage_ns, 0)
+    rows, secs, _, gc_note = route_all(router, topics, batch, 1)
+    del rows
+    m.stage_timing = False
+    expand = secs * 1e9 - sum(m.stage_ns.values())
+    log(f"    stage split (serial pass, {secs * 1e3:.3f} ms): "
+        + ", ".join(f"{k} {v / 1e6:.3f} ms" for k, v in m.stage_ns.items())
+        + f", expand + rest {expand / 1e6:.3f} ms ({gc_note})")
+
+    # every topic: the same router path with the plain words twin on the card
+    m.use_kernel = False
+    try:
+        plain_filters, *_ = route_all(router, topics, batch, 1)
+    finally:
+        m.use_kernel = True
+    for i, (a, b) in enumerate(zip(kernel_filters, plain_filters)):
+        if a != b:
+            raise AssertionError(f"kernel path vs plain path differ at topic "
+                                 f"{i} {topics[i]!r}: {a[:4]} vs {b[:4]}")
+    del plain_filters
+    log(f"    all {n} topics equal to the plain-words path on the card")
+
+    rng = random.Random(seed)
+    idx = sorted(rng.sample(range(n), min(sample, n)))
+    sample_topics = [topics[i] for i in idx]
+    check_oracle(tree, sample_topics, [kernel_filters[i] for i in idx], "sample")
+
+    # churn: removes + adds in rounds, each followed by a re-match of the
+    # sample (a broker interleaves mutations with publishes; each round's
+    # dirty chunks go up as one delta upload)
+    d0, f0 = m.delta_uploads, m.full_uploads
+    live = {f: i for i, f in enumerate(filters)}
+    gone = rng.sample(filters, min(churn, len(filters)))
+    fresh = [f for f in gen_mixed(random.Random(seed + 1), 2 * churn)
+             if f not in live][:len(gone)]
+    opts = SubscriptionOptions()
+    rounds = 4
+    for r in range(rounds):
+        for f in gone[r::rounds]:
+            router.remove(f, Id(1, f"c{live.pop(f)}"))
+            tree.remove(f, f)
+        for j in range(r, len(fresh), rounds):
+            router.add(fresh[j], Id(1, f"n{j}"), opts)
+            tree.insert(fresh[j], fresh[j])
+        got = [_routed_filters(raw) for raw in
+               router.matches_batch_raw([(None, t) for t in sample_topics])]
+        check_oracle(tree, sample_topics, got, f"after churn round {r + 1}")
+    if m.delta_uploads <= d0:
+        raise AssertionError(f"churn did not delta-upload ({m.delta_uploads} <= {d0})")
+    log(f"    churn: -{len(gone)} +{len(fresh)} filters in {rounds} rounds, delta "
+        f"uploads {d0} -> {m.delta_uploads}, full uploads {f0} -> {m.full_uploads}")
+    return kernel_filters
+
+
+def phase_legacy(router: TorchRouter, topics, batch: int, want_filters) -> None:
+    log("[5] the same topics through TorchRouter on legacy tiles")
+    for what in ("cold pass", "warm"):
+        got, *timing = route_all(router, topics, batch, 2)
+        _log_pass(f"{what}, pipelined depth 2", len(topics), *timing)
+        for i, (g, w) in enumerate(zip(got, want_filters)):
+            if g != w:
+                raise AssertionError(f"legacy path differs at {topics[i]!r}")
+        del got
+    log(f"    all {len(topics)} topics equal to phase 4's packed-tile results "
+        f"in both passes")
+
+
+def phase_profile(router: TorchRouter, topics, batch: int) -> None:
+    """One pipelined pass through the packed-tile router under the profiler,
+    after every timed pass (the profiler adds host overhead)."""
+    log("[6] device profile of one pipelined pass (packed tiles)")
+    share, wall, prof_rows = profile_device(lambda: route_all(router, topics, batch, 2))
+    log(f"    wall {wall * 1e3:.3f} ms, device busy {share * 100:.2f}% (idle "
+        f"{100 - share * 100:.2f}%)" if prof_rows
+        else "    no device time recorded (not measured)")
+    for name, ms, cnt in prof_rows[:10]:
+        log(f"      {ms:9.3f} ms  x{cnt:<5d} {name[:90]}")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--filters", type=int, default=1_000_000)
+    ap.add_argument("--topics", type=int, default=32_768)
+    ap.add_argument("--batch", type=int, default=16_384)
+    ap.add_argument("--sample", type=int, default=2_048)
+    ap.add_argument("--churn", type=int, default=2_000)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this run needs one GPU", file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+    device = phase_device()
+    phase_build()
+    dev = torch.device("cuda", 0)
+
+    t0 = time.perf_counter()
+    rng = random.Random(args.seed)
+    filters = gen_mixed(rng, args.filters)
+    topics = gen_topics_uniform(rng, args.topics)
+    log(f"    workload: {len(filters)} filters, {len(topics)} topics generated in "
+        f"{time.perf_counter() - t0:.2f}s")
+    packed_router = build_router(filters, dev, packed=True)
+    legacy_router = build_router(filters, dev, packed=False)
+    assert packed_router.matcher._dev.layout is not None
+    assert legacy_router.matcher._dev.layout is None
+    t0 = time.perf_counter()
+    tree = TopicTree()
+    for f in filters:
+        tree.insert(f, f)
+    log(f"    TopicTree oracle built in {time.perf_counter() - t0:.2f}s")
+    # daemon GC hygiene, as bench.py does for the same tables: the ~10^7
+    # long-lived objects of two 1M-filter routers and the oracle must not
+    # be re-scanned by every full collection the routing passes trigger
+    gc.collect()
+    gc.freeze()
+    GC_TIME.install()
+
+    stats = phase_kernels(packed_router, legacy_router, topics, args.batch, dev)
+
+    MW.match_words_packed.launches = 0
+    MW.match_words_legacy.launches = 0
+    want_filters = phase_cfg3(packed_router, tree, filters, topics, args.batch,
+                              args.sample, args.churn, args.seed)
+    launches = {"match_words_packed": MW.match_words_packed.launches,
+                "match_words_legacy": MW.match_words_legacy.launches}
+
+    MW.match_words_packed.launches = 0
+    MW.match_words_legacy.launches = 0
+    phase_legacy(legacy_router, topics, args.batch, want_filters)
+    launches["match_words_legacy"] = MW.match_words_legacy.launches
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was never launched on its router path")
+    phase_profile(packed_router, topics, args.batch)
+
+    kernels = []
+    for name, s in stats.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+            "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+            "bound_by": s["bound_by"], "library_ms": None,
+            "equal_to_plain": True, "cases": s["cases"],
+        })
+    log(f"[7] kernels (total run {time.perf_counter() - t_start:.1f}s)")
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": device}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

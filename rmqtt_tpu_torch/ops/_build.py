@@ -1,0 +1,115 @@
+"""Build and load the hand-written CUDA kernels.
+
+``nvcc`` compiles ``rmqtt_tpu_torch/csrc/match_words.cu`` into a shared
+library with a plain C interface, loaded with ``ctypes`` (no PyTorch
+headers, so a build takes seconds). The library lands in
+``rmqtt_tpu_torch/_build/`` under a name keyed on a hash of the source and
+the flags, so an edited source rebuilds and an unchanged one loads the
+library already built. Nothing here runs at import time: the first kernel
+launch calls :func:`kernel_library`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Optional
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCE = _PKG / "csrc" / "match_words.cu"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # tiles, nchunks, groups, ttok, nlvl, wide_mask, meta_plane, tlen,
+    # tdollar, chunk_ids, b, nc, out, stream
+    "launch_match_words_packed": (_P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _I,
+                                  _I, _P, _P),
+    # tiles, tile_bytes, nchunks, lvl, ttok, tlen, tdollar, chunk_ids, b,
+    # nc, out, stream
+    "launch_match_words_legacy": (_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P,
+                                  _P),
+}
+
+
+@dataclass
+class KernelLibrary:
+    """The loaded library plus what its build reported."""
+
+    lib: ctypes.CDLL
+    path: Path
+    log: str  # nvcc's output, including the -Xptxas -v resource lines
+    build_s: float  # 0.0 when an existing build was loaded
+
+
+_LOCK = threading.Lock()
+_LOADED: Optional[KernelLibrary] = None
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME or put nvcc on PATH): the CUDA "
+        "kernels of rmqtt_tpu_torch are built from source at first use")
+
+
+def _build(so: Path, log_path: Path) -> tuple:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    secs = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{log}")
+    log_path.write_text(log)
+    os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
+    return log, secs
+
+
+def kernel_library() -> KernelLibrary:
+    """Build (once per source hash) and load the kernel library."""
+    global _LOADED
+    with _LOCK:
+        if _LOADED is not None:
+            return _LOADED
+        digest = hashlib.sha256(
+            SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        ).hexdigest()[:16]
+        so = BUILD_DIR / f"match_words_{digest}.so"
+        log_path = so.with_suffix(".log")
+        if so.exists():
+            log = log_path.read_text() if log_path.exists() else ""
+            secs = 0.0
+        else:
+            log, secs = _build(so, log_path)
+        lib = ctypes.CDLL(str(so))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        _LOADED = KernelLibrary(lib=lib, path=so, log=log, build_s=secs)
+        return _LOADED

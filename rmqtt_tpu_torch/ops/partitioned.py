@@ -1,0 +1,1759 @@
+"""Partitioned automaton and the PUBLISH-routing matcher, in PyTorch.
+
+The port of the JAX package's ``ops/partitioned.py`` for the global/fused
+path. Its host half is a numpy copy: filters are bucketed by their first
+levels into *partitions* (``partition_key``); each partition owns row
+*chunks* of ``CHUNK`` rows in a flat table (``PartitionedTable``), and a
+publish topic only has to be tested against the chunks of the ≤15
+partitions it can match (``topic_partitions``) — the reference trie's
+pruning (`rmqtt/src/trie.rs` DFS) flattened into regular tiles.
+
+Its device half runs on torch tensors:
+
+1. the words producer — the hand-written CUDA kernels of
+   ``ops/match_words.py`` (packed or legacy tiles) — tests every topic's
+   candidate chunks and packs 32 row results per word;
+2. ``fused_compact_decode`` compacts the nonzero words and set bits of the
+   whole batch into one slot budget, resolves each matched row to its
+   filter id through the device-resident row→fid map and sorts by
+   (topic, fid), so the host's whole decode is one ``np.split``.
+
+``PartitionedMatcher`` keeps the device mirror of a table (full upload or
+dirty-chunk delta) and runs batches through (1)+(2): one device→host fetch
+per batch. Entry points run on CUDA unless the caller passes
+``device="cpu"``; with no device given and no CUDA device they raise.
+"""
+
+from __future__ import annotations
+
+import bisect
+import logging
+import os
+import threading
+import time
+from typing import Dict, List, NamedTuple, Optional, Sequence, Set, Tuple
+
+import numpy as np
+import torch
+
+from rmqtt_tpu_torch.core.topic import HASH, PLUS, is_metadata, split_levels
+from rmqtt_tpu_torch.ops.encode import (
+    _FIRST_TOK,
+    HASH_TOK,
+    PACKED_MAX_LEVELS,
+    PACKED_W1_MAX,
+    PACKED_W2_MAX,
+    PAD_TOK,
+    PLUS_TOK,
+    DeltaLog,
+    PackedLayout,
+    TokenDict,
+    UNK_TOK,
+    group_byte_planes,
+)
+# CHUNK = 128 rows per tile (4 words): the JAX package's constant; some of
+# its docstrings say 256, which is wrong
+from rmqtt_tpu_torch.ops.match_words import CHUNK, WORDS_PER_CHUNK, words_any
+from rmqtt_tpu_torch.utils.devfetch import fetch
+
+_LOG = logging.getLogger("rmqtt_tpu_torch.ops")
+
+# partition key kinds
+_K_HASH = ("#",)
+
+
+class _CompactState:
+    """A fully-built compacted physical layout, ready to swap in."""
+
+    __slots__ = ("arrays", "fid_of_row", "row_of_fid", "cap_chunks", "nchunks",
+                 "excl_chunks", "excl_free", "shared_chunks_of",
+                 "shared_rows_of", "shared_free", "open_shared")
+
+
+def _build_compact_state(
+    key_of: Dict[int, Tuple], row_of: Dict[int, int], arrays, max_lvl: int,
+) -> _CompactState:
+    """Gather a snapshot of live rows into a fresh compacted layout.
+
+    Runs WITHOUT the table lock: ``key_of``/``row_of`` are point-in-time
+    copies and ``arrays`` are references to the then-current host arrays.
+    Rows of fids mutated after the snapshot may be read torn here — the
+    install step re-writes exactly those fids from journal data."""
+    tok_a, flen_a, pl_a, hh_a, fw_a = arrays
+    by_key: Dict[Tuple, List[int]] = {}
+    for fid, key in key_of.items():
+        by_key.setdefault(key, []).append(fid)
+    keys_sorted = sorted(by_key, key=repr)
+    src_rows: List[int] = []
+    fids_ordered: List[int] = []
+    for key in keys_sorted:
+        for fid in by_key[key]:
+            fids_ordered.append(fid)
+            src_rows.append(row_of[fid])
+    src = np.asarray(src_rows, dtype=np.int64)
+    n = len(src)
+    need_chunks = 1 + (n + CHUNK - 1) // CHUNK + 1
+    cap = 64
+    while cap < need_chunks:
+        cap *= 2
+    st = _CompactState()
+    st.cap_chunks = cap
+    rows = cap * CHUNK
+    tok = np.zeros((rows, max_lvl), dtype=np.int32)
+    flen = np.full((rows,), -1, dtype=np.int32)
+    pl = np.zeros((rows,), dtype=np.int32)
+    hh = np.zeros((rows,), dtype=bool)
+    fw = np.zeros((rows,), dtype=bool)
+    dst = np.arange(CHUNK, CHUNK + n, dtype=np.int64)  # chunk 0 stays empty
+    tok[dst] = tok_a[src, :max_lvl]
+    flen[dst] = flen_a[src]
+    pl[dst] = pl_a[src]
+    hh[dst] = hh_a[src]
+    fw[dst] = fw_a[src]
+    st.arrays = (tok, flen, pl, hh, fw)
+    fid_arr = np.asarray(fids_ordered, dtype=np.int64)
+    fid_of_row = np.full(rows, -1, dtype=np.int64)
+    fid_of_row[dst] = fid_arr
+    st.fid_of_row = fid_of_row
+    st.row_of_fid = {int(f): int(r) for f, r in zip(fid_arr, dst)}
+    # partition structures: spanned chunks per key. Partitions below one
+    # chunk stay classified as SHARED-resident so later adds keep packing
+    # instead of each claiming a fresh exclusive chunk (which would
+    # re-create the sparse layout the compaction just removed).
+    st.excl_chunks = {}
+    st.excl_free = {}
+    st.shared_chunks_of = {}
+    st.shared_rows_of = {}
+    st.shared_free = {}
+    st.open_shared = []
+    pos = CHUNK
+    for key in keys_sorted:
+        k = len(by_key[key])
+        first_chunk = pos // CHUNK
+        last_chunk = (pos + k - 1) // CHUNK
+        if k < CHUNK:
+            krows = list(range(pos, pos + k))
+            st.shared_rows_of[key] = krows
+            occ: Dict[int, int] = {}
+            for r in krows:
+                occ[r // CHUNK] = occ.get(r // CHUNK, 0) + 1
+            st.shared_chunks_of[key] = occ
+        else:
+            st.excl_chunks[key] = list(range(first_chunk, last_chunk + 1))
+        pos += k
+    st.nchunks = (pos + CHUNK - 1) // CHUNK
+    # the tail of the last chunk is unowned free space: future adds for
+    # any key fall through _alloc_row's shared path
+    tail_start = pos
+    tail_end = st.nchunks * CHUNK
+    if tail_end > tail_start:
+        st.shared_free[st.nchunks - 1] = list(range(tail_end - 1, tail_start - 1, -1))
+        st.open_shared.append(st.nchunks - 1)
+    return st
+
+
+def partition_key(levels: Sequence[str]) -> Tuple:
+    """Partition of a (stripped, validated) filter.
+
+    Depth-3 keys: measurement showed the depth-2 wildcard-wildcard bucket
+    dominates candidate counts (NOTES.md), so filters deep enough are split
+    by their third level too:
+
+    - ``("#",)``            bare ``#``
+    - ``("1", k0)``         single-level filters
+    - ``("2", k0)``         ``k0/#``
+    - ``("2E", k0, k1)``    exactly two levels, no ``#``
+    - ``("H3", k0, k1)``    ``k0/k1/#``
+    - ``("4", k0, k1, k2)`` three or more levels (k2 = third level)
+
+    with every ``k`` ∈ {token, ``+``}.
+    """
+    f0 = levels[0]
+    if f0 == HASH:
+        return _K_HASH
+    k0 = PLUS if f0 == PLUS else f0
+    if len(levels) == 1:
+        return ("1", k0)
+    if levels[1] == HASH:
+        return ("2", k0)
+    k1 = PLUS if levels[1] == PLUS else levels[1]
+    if len(levels) == 2:
+        return ("2E", k0, k1)
+    if levels[2] == HASH:
+        return ("H3", k0, k1)
+    k2 = PLUS if levels[2] == PLUS else levels[2]
+    return ("4", k0, k1, k2)
+
+
+def topic_partitions(levels: Sequence[str]) -> List[Tuple]:
+    """Candidate partitions for a publish topic (≤15, most tiny)."""
+    t0 = levels[0]
+    n = len(levels)
+    out: List[Tuple] = [_K_HASH, ("2", t0), ("2", PLUS)]
+    if n == 1:
+        out += [("1", t0), ("1", PLUS)]
+        return out
+    t1 = levels[1]
+    pairs = ((t0, t1), (t0, PLUS), (PLUS, t1), (PLUS, PLUS))
+    for a, b in pairs:
+        out.append(("H3", a, b))
+    if n == 2:
+        for a, b in pairs:
+            out.append(("2E", a, b))
+        return out
+    t2 = levels[2]
+    for a, b in pairs:
+        out.append(("4", a, b, t2))
+        out.append(("4", a, b, PLUS))
+    return out
+
+
+class PartitionedTable:
+    """Flat filter-row arrays with partition-chunked allocation.
+
+    Chunk 0 is reserved empty (the padding target for per-topic chunk lists).
+
+    Small partitions PACK INTO SHARED CHUNKS: with depth-3 keys most
+    partitions hold a handful of rows, and giving each its own chunk
+    collapsed occupancy to ~2% at 1M filters (NOTES.md). A partition starts
+    inside shared chunks (foreign rows in a candidate chunk cost a little
+    compute — the match formula simply rejects them — not memory); once it
+    accumulates a full chunk's worth of rows it migrates to exclusive
+    chunks. Filter ids are therefore STABLE HANDLES decoupled from row
+    positions (`fid ↔ row` maps), so migration never breaks the router.
+    """
+
+    def __init__(self, max_levels: int = 8) -> None:
+        self.max_levels = max_levels
+        self.nchunks = 1  # chunk 0 = reserved empty
+        self._cap_chunks = 64
+        self._alloc(self._cap_chunks, max_levels)
+        self.tokens = TokenDict()
+        # partition key → exclusive chunk ids / shared chunk ids it occupies
+        self._excl_chunks: Dict[Tuple, List[int]] = {}
+        self._shared_chunks_of: Dict[Tuple, Dict[int, int]] = {}  # cid → row count
+        # free row slots inside partition-exclusive chunks
+        self._excl_free: Dict[Tuple, List[int]] = {}
+        # shared-chunk pool: cid → free row slots; _open_shared lists chunk
+        # ids that still have free slots (O(1) allocation)
+        self._shared_free: Dict[int, List[int]] = {}
+        self._open_shared: List[int] = []
+        self._key_of_fid: Dict[int, Tuple] = {}
+        # stable fid ↔ physical row
+        self._row_of_fid: Dict[int, int] = {}
+        self._fid_of_row: np.ndarray = np.full(self._cap_chunks * CHUNK, -1, dtype=np.int64)
+        self._next_fid = 0
+        # rows of a partition currently living in shared chunks
+        self._shared_rows_of: Dict[Tuple, List[int]] = {}
+        self.size = 0
+        self.version = 0
+        self.dirty_ops = 0  # mutations since the last compact()
+        # --- churn resilience (delta uploads / double buffer / bg compact)
+        # one lock covers mutations, encode's layout walks, delta packing
+        # and the compaction *install*; the compaction *build* runs outside
+        # it so the dispatch path never waits on a table rebuild
+        self._mu = threading.RLock()
+        # bumped whenever the physical chunk layout changes wholesale
+        # (compact): chunk ids encoded under one epoch must never meet a
+        # device table from another
+        self.layout_epoch = 0
+        # dirty-CHUNK journal: matchers scatter-write only these chunks
+        self.delta = DeltaLog()
+        # fid-map undo journal for in-flight match handles: (version,
+        # epoch, row, old_fid) — a handle submitted at version V decodes
+        # rows through the fid map AS OF V by patching back newer writes
+        self._fid_undo_v: List[int] = []
+        self._fid_undo_e: List[int] = []
+        self._fid_undo_row: List[int] = []
+        self._fid_undo_old: List[int] = []
+        self._fid_undo_max = 65536
+        self._fid_undo_floor = 0
+        # background-compaction machinery
+        self.compact_async = True  # matcher-triggered compaction off-thread
+        self.compact_min_ops = 1024
+        self.compact_ratio = 5  # trigger above max(min_ops, size // ratio)
+        self.compactions = 0
+        self.compact_ms = 0.0
+        self.compact_aborts = 0
+        self._compacting = False
+        self._compact_thread: Optional[threading.Thread] = None
+        # serializes whole compactions (a sync compact() racing an async
+        # one must run after it, not interleave journal/install phases)
+        self._compact_lock = threading.Lock()
+        # mutation journal recorded while a compaction build is in flight:
+        # ('a', fid, key, levels) / ('r', fid, key) / ('m', fid) — replayed
+        # against the freshly built layout at install time
+        self._compact_journal: Optional[List[Tuple]] = None
+        # transient per-mutation dirty set (chunks touched by the op)
+        self._txn: Optional[List[int]] = None
+        self._undo_pending: List[Tuple[int, int]] = []
+        # per-(t0[,t1[,t2]]) candidate caches: key -> (chunk ids, gid);
+        # invalidated SELECTIVELY: partition key -> cache keys consulting
+        # it, so a mutation only drops the entries it could affect
+        self._cand_cache: Dict[Tuple, Tuple[np.ndarray, int]] = {}
+        self._cand_keys_of: Dict[Tuple, Set] = {}
+        self._gid_seq = 0
+        self.cand_cache_invalidations = 0
+        # size bound: selective invalidation means entries for never-mutated
+        # partitions would otherwise accumulate forever under high-
+        # cardinality publish streams; past the cap the caches (and the
+        # key registry, which also holds invalidated-entry tombstones)
+        # clear wholesale — cheap and rare
+        self.cand_cache_max = 65536
+        self._nc_cap = 32
+        # narrow dtypes while ids fit (the JAX package's upload narrowing;
+        # kept so the encode output and legacy tiles stay identical to it —
+        # pack_device_rows shares _tok_wide, so the bound is int16's, not
+        # uint16's); STICKY once widened
+        self._tok_wide = False
+        self._cand_wide = False
+        # --- bit-packed tile support (level-local token id spaces).
+        # Every (level, global id) pair a filter row uses is assigned a
+        # LOCAL id at write time; per-level LUT arrays translate global →
+        # local for both tile packing and topic encode. Widths are sticky
+        # grow-only (1 byte while a level's vocab fits 252 tokens, then 2);
+        # a level past 65532 tokens disables the packed format for good.
+        self.packed_ok = True
+        self._lvl_counts: List[int] = [0] * max_levels
+        self._lvl_widths: List[int] = [1] * max_levels
+        self._lvl_luts: List[np.ndarray] = [
+            self._new_lut() for _ in range(max_levels)
+        ]
+        # grow-only count of levels that carry token information (max
+        # prefix_len over live rows); compaction recomputes the true max
+        self._eff_levels = 1
+
+    @staticmethod
+    def _new_lut(cap: int = 1024) -> np.ndarray:
+        lut = np.full((cap,), UNK_TOK, dtype=np.int32)
+        lut[:_FIRST_TOK] = np.arange(_FIRST_TOK)  # reserved ids map to selves
+        return lut
+
+    def _register_level(self, level: int, gid: int) -> None:
+        """Assign (level, global id) its local id on first use. Caller holds
+        the table lock (all row writes do)."""
+        if gid < _FIRST_TOK:
+            return
+        lut = self._lvl_luts[level]
+        if gid >= len(lut):
+            cap = len(lut)
+            while cap <= gid:
+                cap *= 2
+            grown = np.full((cap,), UNK_TOK, dtype=np.int32)
+            grown[: len(lut)] = lut
+            self._lvl_luts[level] = lut = grown
+        if lut[gid] != UNK_TOK:
+            return
+        n = self._lvl_counts[level] + 1
+        self._lvl_counts[level] = n
+        lut[gid] = _FIRST_TOK - 1 + n
+        if n > PACKED_W1_MAX:
+            self._lvl_widths[level] = 2
+        if n > PACKED_W2_MAX:
+            self.packed_ok = False
+
+    def packed_layout(self) -> Optional[PackedLayout]:
+        """Static descriptor of the current bit-packed tile layout, or None
+        when the table is not packable (too-deep filters / a level's vocab
+        past two bytes). Compared by VALUE: any width/depth change yields a
+        different layout, which the delta-upload gate treats as a wholesale
+        relayout (full re-upload)."""
+        if not self.packed_ok or self.max_levels > PACKED_MAX_LEVELS:
+            return None
+        eff = min(max(self._eff_levels, 1), self.max_levels)
+        return PackedLayout(tuple(self._lvl_widths[:eff]))
+
+    def translate_packed(self, ttok: np.ndarray):
+        """→ ``(layout, ttok_local [B, layout.nlvl] int32)`` — topic tokens
+        re-keyed into the per-level local id spaces (unknown-at-level →
+        ``UNK_TOK``, which is exactly right: no filter row carries that
+        token at that level, so only wildcards can match it). Returns
+        ``(None, None)`` when the table is not packable. Runs under the
+        table lock so the layout and LUT contents are captured together."""
+        with self._mu:
+            layout = self.packed_layout()
+            if layout is None:
+                return None, None
+            nlvl = layout.nlvl
+            out = np.empty((ttok.shape[0], nlvl), dtype=np.int32)
+            for i in range(nlvl):
+                lut = self._lvl_luts[i]
+                g = ttok[:, i].astype(np.int64, copy=False)
+                out[:, i] = np.where(
+                    g < len(lut), lut[np.minimum(g, len(lut) - 1)], UNK_TOK
+                )
+            return layout, out
+
+    def _tok_dtype(self):
+        if not self._tok_wide and _FIRST_TOK + len(self.tokens) >= 0x7FFF:
+            self._tok_wide = True
+        return np.int32 if self._tok_wide else np.int16
+
+    def _cand_dtype(self):
+        if not self._cand_wide and self.nchunks >= 0x10000:
+            self._cand_wide = True
+        return np.int32 if self._cand_wide else np.uint16
+
+    # ------------------------------------------------------------- storage
+    def _alloc(self, cap_chunks: int, lvl: int) -> None:
+        rows = cap_chunks * CHUNK
+        self.tok = np.zeros((rows, lvl), dtype=np.int32)
+        self.flen = np.full((rows,), -1, dtype=np.int32)
+        self.prefix_len = np.zeros((rows,), dtype=np.int32)
+        self.has_hash = np.zeros((rows,), dtype=bool)
+        self.first_wild = np.zeros((rows,), dtype=bool)
+
+    def _grow(self, need_chunks: int, need_levels: int) -> None:
+        new_cap = self._cap_chunks
+        while new_cap < need_chunks:
+            new_cap *= 2
+        new_lvl = max(need_levels, self.max_levels)
+        if new_cap == self._cap_chunks and new_lvl == self.max_levels:
+            return
+        old = (self.tok, self.flen, self.prefix_len, self.has_hash, self.first_wild,
+               self._fid_of_row)
+        old_rows, old_lvl = self._cap_chunks * CHUNK, self.max_levels
+        self._cap_chunks, self.max_levels = new_cap, new_lvl
+        for _ in range(old_lvl, new_lvl):
+            self._lvl_counts.append(0)
+            self._lvl_widths.append(1)
+            self._lvl_luts.append(self._new_lut())
+        self._alloc(new_cap, new_lvl)
+        self._fid_of_row = np.full(new_cap * CHUNK, -1, dtype=np.int64)
+        self.tok[:old_rows, :old_lvl] = old[0]
+        self.flen[:old_rows] = old[1]
+        self.prefix_len[:old_rows] = old[2]
+        self.has_hash[:old_rows] = old[3]
+        self.first_wild[:old_rows] = old[4]
+        self._fid_of_row[:old_rows] = old[5]
+
+    def _new_chunk(self) -> int:
+        cid = self.nchunks
+        self.nchunks += 1
+        if self.nchunks > self._cap_chunks:
+            self._grow(self.nchunks, self.max_levels)
+        return cid
+
+    def _alloc_row(self, key: Tuple) -> int:
+        """Pick a physical row for a new filter of this partition."""
+        # 1) free slot in one of the partition's exclusive chunks
+        free = self._excl_free.get(key)
+        if free:
+            return free.pop()
+        shared_rows = self._shared_rows_of.setdefault(key, [])
+        excl = self._excl_chunks.get(key)
+        if excl or len(shared_rows) + 1 >= CHUNK:
+            # partition is (or becomes) big: use exclusive chunks; migrate
+            # any shared-resident rows into the new chunk first
+            cid = self._new_chunk()
+            base = cid * CHUNK
+            self._excl_chunks.setdefault(key, []).append(cid)
+            slots = list(range(base, base + CHUNK))
+            for src in shared_rows:
+                dst = slots.pop(0)
+                self._move_row(src, dst)
+            shared_rows.clear()
+            self._shared_chunks_of.pop(key, None)
+            self._excl_free[key] = slots[1:][::-1]
+            return slots[0]
+        # 2) small partition: take a slot in a shared chunk, preferring
+        # chunks this partition already occupies (keeps its candidate
+        # chunk-set small)
+        row = None
+        occ = self._shared_chunks_of.setdefault(key, {})
+        for cid in occ:
+            free_slots = self._shared_free.get(cid)
+            if free_slots:
+                row = free_slots.pop()
+                break
+        if row is None:
+            while self._open_shared:
+                cid = self._open_shared[-1]
+                free_slots = self._shared_free.get(cid)
+                if free_slots:
+                    row = free_slots.pop()
+                    break
+                self._open_shared.pop()  # exhausted chunk
+            else:
+                cid = self._new_chunk()
+                base = cid * CHUNK
+                self._shared_free[cid] = list(range(base + CHUNK - 1, base, -1))
+                self._open_shared.append(cid)
+                row = base
+        shared_rows.append(row)
+        occ[row // CHUNK] = occ.get(row // CHUNK, 0) + 1
+        return row
+
+    def _free_shared_slot(self, row: int) -> None:
+        cid = row // CHUNK
+        slots = self._shared_free.setdefault(cid, [])
+        if not slots:
+            self._open_shared.append(cid)
+        slots.append(row)
+
+    def _move_row(self, src: int, dst: int) -> None:
+        self.tok[dst] = self.tok[src]
+        self.flen[dst] = self.flen[src]
+        self.prefix_len[dst] = self.prefix_len[src]
+        self.has_hash[dst] = self.has_hash[src]
+        self.first_wild[dst] = self.first_wild[src]
+        fid = int(self._fid_of_row[src])
+        if self._txn is not None:
+            # migration inside a mutation: both chunks changed on device,
+            # and both fid-map cells need undo entries for in-flight handles
+            self._txn.append(src // CHUNK)
+            self._txn.append(dst // CHUNK)
+            self._undo_pending.append((dst, int(self._fid_of_row[dst])))
+            self._undo_pending.append((src, fid))
+            if self._compact_journal is not None:
+                self._compact_journal.append(("m", fid))
+        self._fid_of_row[dst] = fid
+        self._row_of_fid[fid] = dst
+        self._clear_row(src)
+        self._free_shared_slot(src)
+
+    def _clear_row(self, row: int) -> None:
+        self.tok[row, :] = PAD_TOK
+        self.flen[row] = -1
+        self.prefix_len[row] = 0
+        self.has_hash[row] = False
+        self.first_wild[row] = False
+        self._fid_of_row[row] = -1
+
+    # ------------------------------------------------ mutation bookkeeping
+    def _begin_txn(self) -> None:
+        self._txn = []
+        self._undo_pending: List[Tuple[int, int]] = []
+
+    def _finish_txn(self, key: Tuple) -> None:
+        """Flush one mutation's tracking: version bump, dirty-chunk marks,
+        fid-map undo entries, and selective candidate-cache invalidation."""
+        self.version += 1
+        self.dirty_ops += 1
+        v, e = self.version, self.layout_epoch
+        for cid in set(self._txn):
+            self.delta.mark(v, cid)
+        for row, old_fid in self._undo_pending:
+            self._fid_undo_v.append(v)
+            self._fid_undo_e.append(e)
+            self._fid_undo_row.append(row)
+            self._fid_undo_old.append(old_fid)
+        if len(self._fid_undo_v) > self._fid_undo_max:
+            half = self._fid_undo_max // 2
+            self._fid_undo_floor = self._fid_undo_v[half - 1]
+            del self._fid_undo_v[:half]
+            del self._fid_undo_e[:half]
+            del self._fid_undo_row[:half]
+            del self._fid_undo_old[:half]
+        self._txn = None
+        self._undo_pending = []
+        self._invalidate_cand(key)
+
+    def _invalidate_cand(self, key: Tuple) -> None:
+        """Drop only the candidate-cache entries whose partition key set
+        includes the mutated key (everything else stays warm)."""
+        cache_keys = self._cand_keys_of.pop(key, None)
+        if not cache_keys:
+            return
+        cache = self._cand_cache
+        self.cand_cache_invalidations += sum(
+            cache.pop(ck, None) is not None for ck in cache_keys)
+
+    def _register_cand(self, levels: Sequence[str], cache_key: Tuple) -> None:
+        """Record which partition keys a cached candidate set consulted."""
+        for key in topic_partitions(levels):
+            self._cand_keys_of.setdefault(key, set()).add(cache_key)
+
+    def fid_overlay(self, version: int, epoch: int):
+        """→ ``(overlay, ok)`` for a match handle submitted at (version,
+        epoch): ``overlay`` maps physical row → the fid it held AT that
+        version (undone past the newer in-place writes). ``ok=False`` means
+        the undo journal no longer reaches back that far — the caller must
+        decode best-effort against the live map (dropping cleared rows)."""
+        with self._mu:
+            if version >= self.version:
+                return {}, True
+            if version < self._fid_undo_floor:
+                return {}, False
+            i = bisect.bisect_right(self._fid_undo_v, version)
+            ov: Dict[int, int] = {}
+            for j in range(i, len(self._fid_undo_v)):
+                if self._fid_undo_e[j] != epoch:
+                    continue
+                row = self._fid_undo_row[j]
+                if row not in ov:  # first write after `version` wins
+                    ov[row] = self._fid_undo_old[j]
+            return ov, True
+
+    # ----------------------------------------------------------------- API
+    def add(self, topic_filter: str | Sequence[str]) -> int:
+        levels = split_levels(topic_filter) if isinstance(topic_filter, str) else list(topic_filter)
+        with self._mu:
+            nlev = len(levels)
+            if nlev > self.max_levels:
+                self._grow(self._cap_chunks, nlev)
+            key = partition_key(levels)
+            self._begin_txn()
+            row = self._alloc_row(key)
+            self._write_row(row, levels)
+            fid = self._next_fid
+            self._next_fid += 1
+            self._key_of_fid[fid] = key
+            self._row_of_fid[fid] = row
+            self._txn.append(row // CHUNK)
+            self._undo_pending.append((row, int(self._fid_of_row[row])))
+            self._fid_of_row[row] = fid
+            self.size += 1
+            if self._compact_journal is not None:
+                self._compact_journal.append(("a", fid, key, list(levels)))
+            self._finish_txn(key)
+            return fid
+
+    def _write_row(self, row: int, levels: Sequence[str]) -> None:
+        """Fill one physical row's data from filter levels."""
+        tok_row = self.tok[row]
+        tok_row[:] = PAD_TOK
+        for i, lev in enumerate(levels):
+            if lev == PLUS:
+                tok_row[i] = PLUS_TOK
+            elif lev == HASH:
+                tok_row[i] = HASH_TOK
+            else:
+                gid = self.tokens.intern(lev)
+                tok_row[i] = gid
+                self._register_level(i, gid)
+        nlev = len(levels)
+        hh = levels[-1] == HASH
+        self.flen[row] = nlev
+        self.prefix_len[row] = nlev - 1 if hh else nlev
+        self.has_hash[row] = hh
+        self.first_wild[row] = levels[0] in (PLUS, HASH)
+        prefix = nlev - 1 if hh else nlev
+        if prefix > self._eff_levels:
+            self._eff_levels = prefix
+
+    def remove(self, fid: int) -> None:
+        with self._mu:
+            key = self._key_of_fid.pop(fid, None)
+            if key is None:
+                raise KeyError(f"fid {fid} not active")
+            self._begin_txn()
+            row = self._row_of_fid.pop(fid)
+            self._txn.append(row // CHUNK)
+            self._undo_pending.append((row, fid))
+            self._release_row(key, row)
+            self.size -= 1
+            if self._compact_journal is not None:
+                self._compact_journal.append(("r", fid, key))
+            self._finish_txn(key)
+
+    def _release_row(self, key: Tuple, row: int) -> None:
+        """Clear a physical row and return its slot to the right free list."""
+        self._clear_row(row)
+        cid = row // CHUNK
+        occ = self._shared_chunks_of.get(key)
+        if occ is not None and cid in occ:
+            # row lived in a shared chunk
+            occ[cid] -= 1
+            if occ[cid] == 0:
+                del occ[cid]
+            self._shared_rows_of[key].remove(row)
+            self._free_shared_slot(row)
+        else:
+            self._excl_free.setdefault(key, []).append(row)
+
+    def needs_compact(self) -> bool:
+        """Churn threshold at which the fragmented layout is worth a
+        rebuild (the former ``encode_topics`` inline trigger)."""
+        return self.dirty_ops > max(self.compact_min_ops, self.size // self.compact_ratio)
+
+    def force_full_refresh(self) -> None:
+        """Invalidate every device mirror's delta state: the next refresh
+        must re-pack and re-upload the WHOLE table (after a device fault
+        the resident copy may be gone or torn, so no earlier delta may ever
+        be scattered into it). The layout itself is unchanged — rows stay
+        put — so the epoch bump only closes the delta gate."""
+        with self._mu:
+            self.version += 1
+            self.layout_epoch += 1
+            self.delta.reset(self.version)
+
+    def compact(self) -> None:
+        """Synchronous rebuild (build + install). In the broker this never
+        runs on the dispatch path: ``PartitionedMatcher.match_submit``
+        triggers ``maybe_compact_async()`` instead, which runs the build on
+        a background thread while matching continues against the old
+        layout, then installs atomically."""
+        th = self._compact_thread
+        if th is not None and th.is_alive() and th is not threading.current_thread():
+            th.join()  # background rebuild already in flight: let it land
+            return
+        self._compact()
+
+    def maybe_compact_async(self) -> bool:
+        """Kick off a background compaction if churn warrants one."""
+        if not self.needs_compact():
+            return False
+        with self._mu:
+            if self._compacting:
+                return False
+            self._compacting = True
+        try:
+            th = threading.Thread(
+                target=self._compact_bg, name="rmqtt-table-compact", daemon=True
+            )
+            self._compact_thread = th
+            th.start()
+        except Exception as e:
+            # thread exhaustion must not latch _compacting (disabling
+            # compaction forever) nor fail the dispatch that triggered it;
+            # the next trigger retries
+            self._compacting = False
+            _LOG.warning("background compaction thread failed to start: %s", e)
+            return False
+        return True
+
+    def _compact_bg(self) -> None:
+        try:
+            self._compact()
+        except Exception:  # pragma: no cover - defensive
+            _LOG.exception("background table compaction failed")
+        finally:
+            self._compacting = False
+
+    def _compact(self) -> None:
+        """Rebuild the physical layout: each partition's rows contiguous,
+        partitions packed back-to-back (boundary chunks shared between
+        neighbors). Restores ~100% occupancy and minimal candidate chunk
+        sets after bulk loads/churn; filter ids are stable across the move.
+
+        Two phases: the BUILD gathers a snapshot of every live row into a
+        fresh set of arrays without holding the table lock (mutations that
+        land meanwhile are journaled), then the INSTALL swaps the new
+        layout in under the lock and replays the journal. The old
+        ``_fid_of_row`` array object is left untouched, so match handles
+        submitted against the old layout keep decoding correctly."""
+        t0 = time.perf_counter()
+        with self._compact_lock:
+            with self._mu:
+                key_of = dict(self._key_of_fid)
+                row_of = dict(self._row_of_fid)
+                arrays = (self.tok, self.flen, self.prefix_len, self.has_hash,
+                          self.first_wild)
+                max_lvl = self.max_levels
+                self._compact_journal = []
+            try:
+                state = _build_compact_state(key_of, row_of, arrays, max_lvl)
+            except Exception:
+                with self._mu:
+                    self._compact_journal = None
+                raise
+            with self._mu:
+                journal = self._compact_journal or []
+                self._compact_journal = None
+                if self.max_levels != max_lvl:
+                    # a deeper filter landed mid-build: the built rows are
+                    # too narrow — abort; the next trigger rebuilds at the
+                    # new width
+                    self.compact_aborts += 1
+                    return
+                self._install_compact(state, journal)
+            self.compactions += 1
+            self.compact_ms += (time.perf_counter() - t0) * 1e3
+
+    def _install_compact(self, state: "_CompactState", journal: List[Tuple]) -> None:
+        """Swap the built layout in and replay the build-window journal.
+        Caller holds ``self._mu``."""
+        # net journal effects + row data captured from the still-live old
+        # layout (always consistent under the lock; the build-phase copies
+        # of journal-touched fids may be torn)
+        adds: Dict[int, Tuple[Tuple, List[str]]] = {}
+        removed: Dict[int, Tuple] = {}
+        moved: Dict[int, Optional[Tuple[Tuple, List[str]]]] = {}
+        for op in journal:
+            if op[0] == "a":
+                adds[op[1]] = (op[2], op[3])
+            elif op[0] == "r":
+                removed[op[1]] = op[2]
+                adds.pop(op[1], None)
+                moved.pop(op[1], None)
+            else:  # 'm': migrated by a concurrent add — data may be torn
+                if op[1] not in adds:
+                    moved[op[1]] = None
+        for fid in list(moved):
+            moved[fid] = (self._key_of_fid[fid], self._filter_of_fid(fid))
+        # atomic swap: arrays + partition maps + fid maps change together
+        (self.tok, self.flen, self.prefix_len, self.has_hash,
+         self.first_wild) = state.arrays
+        self._fid_of_row = state.fid_of_row
+        self._row_of_fid = state.row_of_fid
+        self._cap_chunks = state.cap_chunks
+        self.nchunks = state.nchunks
+        self._excl_chunks = state.excl_chunks
+        self._excl_free = state.excl_free
+        self._shared_chunks_of = state.shared_chunks_of
+        self._shared_rows_of = state.shared_rows_of
+        self._shared_free = state.shared_free
+        self._open_shared = state.open_shared
+        # replay: mutations that landed during the build
+        for fid, key in removed.items():
+            row = self._row_of_fid.pop(fid, None)
+            if row is not None:
+                self._release_row(key, row)
+        for fid, (key, levels) in adds.items():
+            row = self._alloc_row(key)
+            self._write_row(row, levels)
+            self._row_of_fid[fid] = row
+            self._fid_of_row[row] = fid
+        for fid, kl in moved.items():
+            row = self._row_of_fid.get(fid)
+            if row is not None and kl is not None:
+                self._write_row(row, kl[1])  # heal a possibly-torn copy
+        # compaction is the one point where _eff_levels may legally SHRINK
+        # (it is grow-only between compactions): the install already forces
+        # every mirror down the full-upload path, so a narrower packed
+        # layout costs nothing extra here
+        rows = self.nchunks * CHUNK
+        live = self.prefix_len[:rows][self._fid_of_row[:rows] >= 0]
+        self._eff_levels = max(1, int(live.max())) if live.size else 1
+        # epoch bump + invalidations land in the same locked region, so
+        # matchers can never pair stale chunk ids with the new device table
+        self.dirty_ops = len(journal)
+        self.layout_epoch += 1
+        self.version += 1
+        self.delta.reset(self.version)
+        self._cand_cache.clear()
+        self._cand_keys_of.clear()
+
+    def _filter_of_fid(self, fid: int) -> List[str]:
+        """Decode a live fid's filter levels back from the row data."""
+        row = self._row_of_fid[fid]
+        strs = self.tokens._strs
+        out: List[str] = []
+        for tok in self.tok[row, : int(self.flen[row])].tolist():
+            if tok == PLUS_TOK:
+                out.append(PLUS)
+            elif tok == HASH_TOK:
+                out.append(HASH)
+            else:
+                out.append(strs[tok - _FIRST_TOK])
+        return out
+
+    # -------------------------------------------------------- topic encode
+    def _candidates_for(self, levels: Sequence[str]) -> np.ndarray:
+        """Candidate chunk ids for a topic prefix (partition-map walk)."""
+        chunks: List[int] = []
+        seen: set = set()  # partitions share boundary/shared chunks
+        for key in topic_partitions(levels):
+            for cid in self._excl_chunks.get(key, ()):
+                if cid not in seen:
+                    seen.add(cid)
+                    chunks.append(cid)
+            occ = self._shared_chunks_of.get(key)
+            if occ:
+                for cid in occ:
+                    if cid not in seen:
+                        seen.add(cid)
+                        chunks.append(cid)
+        return np.asarray(chunks, dtype=np.int32)
+
+    def encode_topics(
+        self, topics: Sequence[str | Sequence[str]], pad_batch_to: Optional[int] = None,
+        with_groups: bool = False,
+    ):
+        """→ (ttok, tlen, tdollar, chunk_ids [B, NC], nc)
+        (+ ``groups`` [B] int32 when ``with_groups``).
+
+        ``chunk_ids`` lists each topic's candidate chunks padded with the
+        reserved empty chunk 0; NC is the batch max (padded to a power of
+        two to keep batch shapes few). ``groups`` assigns topics sharing one
+        candidate-cache entry the same positive id (0 = padded row): the
+        matcher can then upload each distinct candidate row once (zipf
+        publish streams share a few hot prefixes across the whole batch).
+        """
+        # no inline compact() here: compaction runs in the background
+        # (maybe_compact_async, triggered from PartitionedMatcher.match_submit)
+        # and swaps in atomically
+        return self.encode_topics_versioned(topics, pad_batch_to, with_groups)[0]
+
+    def encode_topics_versioned(
+        self, topics: Sequence[str | Sequence[str]],
+        pad_batch_to: Optional[int] = None, with_groups: bool = False,
+    ):
+        """``(encode tuple, layout_epoch)`` captured atomically — matchers
+        compare this epoch with their device snapshot's to detect a
+        compaction installing between encode and refresh. Returned (not
+        stashed on the table) so two matchers sharing one table can't
+        clobber each other's epoch reads. The encoder is the Python one
+        (the JAX package's ``_encode_py``); its C++ encoder is not ported."""
+        with self._mu:
+            return self._encode_py(topics, pad_batch_to, with_groups), self.layout_epoch
+
+    def _encode_py(
+        self, topics: Sequence[str | Sequence[str]], pad_batch_to: Optional[int],
+        with_groups: bool = False,
+    ):
+        batch = len(topics)
+        b = pad_batch_to or batch
+        lvl = self.max_levels
+        tlen = np.full((b,), -2, dtype=np.int16)
+        tdollar = np.zeros((b,), dtype=bool)
+        tok_rows: List[List[int]] = []
+        per_topic_chunks: List[np.ndarray] = []
+        lookup = self.tokens.lookup
+        # the cache is invalidated SELECTIVELY at mutation time
+        # (_invalidate_cand): entries whose partition keys a mutation never
+        # touched survive version bumps
+        if len(self._cand_cache) >= self.cand_cache_max:
+            self._cand_cache.clear()
+            self._cand_keys_of.clear()
+        cache = self._cand_cache
+        groups = np.full((b,), -1, dtype=np.int32)
+        for j, topic in enumerate(topics):
+            levels = split_levels(topic) if isinstance(topic, str) else list(topic)
+            # clamp: every stored flen/prefix_len is <= max_levels, so any
+            # deeper topic compares identically at lvl+1 — and the clamp
+            # keeps int16 safe for arbitrarily deep (hostile) topics
+            tlen[j] = min(len(levels), lvl + 1)
+            tdollar[j] = bool(levels[0]) and is_metadata(levels[0])
+            row = [lookup(lev) for lev in levels[:lvl]]
+            row += [PAD_TOK] * (lvl - len(row))
+            tok_rows.append(row)
+            # candidate chunks: cached per effective prefix — topics share
+            # these heavily (the wildcard partitions are common to all).
+            # The key must cover every level the partition scheme inspects
+            # (1, 2 or 3 depending on topic depth).
+            ckey = tuple(levels[:3]) if len(levels) >= 3 else tuple(levels)
+            ckey = (len(ckey),) + ckey
+            ent = cache.get(ckey)
+            if ent is None:
+                # monotonic gid (NOT len(cache)): selective invalidation
+                # means ids of evicted entries must never be reissued to a
+                # different candidate set while survivors still carry them
+                ent = (self._candidates_for(levels), self._gid_seq)
+                self._gid_seq += 1
+                cache[ckey] = ent
+                self._register_cand(levels, ckey)
+            cand, gid = ent
+            groups[j] = gid
+            per_topic_chunks.append(cand)
+        ttok = np.zeros((b, lvl), dtype=self._tok_dtype())
+        if batch:
+            ttok[:batch] = np.asarray(tok_rows, dtype=np.int64).astype(ttok.dtype)
+        mx = max((len(c) for c in per_topic_chunks), default=1)
+        # sticky pow2 NC (grow-only per table): a light batch after a heavy
+        # one must not flip the kernel signature back and forth
+        self._nc_cap = max(self._nc_cap, 1 << (max(1, mx) - 1).bit_length())
+        nc = self._nc_cap
+        chunk_ids = np.zeros((b, nc), dtype=self._cand_dtype())  # 0 = empty chunk
+        for j, chunks in enumerate(per_topic_chunks):
+            chunk_ids[j, : len(chunks)] = chunks
+        if with_groups:
+            return ttok, tlen, tdollar, chunk_ids, nc, groups + 1  # padded -> 0
+        return ttok, tlen, tdollar, chunk_ids, nc
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``device`` when given, else the
+    current CUDA device. Never falls back to the CPU on its own: with no
+    device given and no CUDA device this raises."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device available; pass device='cpu' to run on the CPU")
+        return torch.device("cuda", torch.cuda.current_device())
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host array → an owned tensor on ``device`` (the H2D copy runs from
+    pinned memory on the current stream, so it does not block the host)."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type == "cpu":
+        return t.clone()
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+# ------------------------------------------------- fused device pipeline
+def _popcount32(words: torch.Tensor) -> torch.Tensor:
+    """Set bits of each int32 word (as uint32) → int64. PyTorch has no
+    popcount: this is the SWAR bit count on int64."""
+    x = words.to(torch.int64) & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def fused_compact_decode(words: torch.Tensor, fid_rows: torch.Tensor,
+                         chunk_ids: torch.Tensor, budget: int) -> torch.Tensor:
+    """Match words → final per-topic fid buffer, entirely on the device
+    (twin of the JAX ``fused_compact_decode_impl``).
+
+    1. word compaction — an exclusive prefix sum over the nonzero-word mask
+       gives each nonzero word a slot of the shared ``budget``; the slot
+       remembers the word's flat index (topic, word) and its bits;
+    2. route expansion — a second prefix sum over the compacted words' set
+       bits gives each matched row a slot; the row's global id
+       ``chunk_ids[topic, w//4]*CHUNK + (w%4)*32 + bit`` resolves to its
+       fid through ``fid_rows``;
+    3. one sort on the int64 key ``topic * 2**32 + (fid + 2**31)`` puts the
+       buffer in (topic, fid) order — the offset keeps the signed order, so
+       a -1 fid (a cleared row) sorts exactly as in JAX's two-key sort.
+
+    Slots past the budget go to a sentinel slot ``budget`` that is sliced
+    off (JAX drops them with ``mode="drop"``). Unfilled slots carry the
+    sentinel topic B and sort last. Counts come from the words' popcount,
+    independent of the budget, so ``cnts.sum() > budget`` signals overflow.
+    → ``[budget + B]`` int32 ``[fids..., cnts...]``."""
+    b, w = words.shape
+    dev = words.device
+    cnts = _popcount32(words).sum(dim=1)
+    if b == 0:
+        return torch.zeros(budget, dtype=torch.int32, device=dev)
+    cid = chunk_ids.to(torch.int64)
+    flat = words.reshape(-1)
+    nz = flat != 0
+    nzi = nz.to(torch.int64)
+    pos = torch.cumsum(nzi, 0) - nzi
+    idx = torch.where(nz & (pos < budget), pos, budget)
+    src = torch.zeros(budget + 1, dtype=torch.int64, device=dev)
+    src[idx] = torch.arange(b * w, dtype=torch.int64, device=dev)
+    bits = torch.zeros(budget + 1, dtype=torch.int32, device=dev)
+    bits[idx] = flat
+    src, bits = src[:budget], bits[:budget]
+    wtop, widx = src // w, src % w  # unfilled slots: (0, 0) with no bits
+    lanes = torch.arange(32, dtype=torch.int32, device=dev)
+    rnzi = ((bits[:, None] >> lanes) & 1).reshape(-1).to(torch.int64)
+    rpos = torch.cumsum(rnzi, 0) - rnzi
+    ridx = torch.where((rnzi > 0) & (rpos < budget), rpos, budget)
+    wpc = WORDS_PER_CHUNK
+    rows = (cid[wtop, widx // wpc] * CHUNK + (widx % wpc) * 32)[:, None] + lanes
+    fvals = fid_rows.reshape(-1)[rows.reshape(-1)].to(torch.int64)
+    tj = torch.full((budget + 1,), b, dtype=torch.int64, device=dev)
+    tj[ridx] = wtop[:, None].expand(budget, 32).reshape(-1)
+    fids = torch.zeros(budget + 1, dtype=torch.int64, device=dev)
+    fids[ridx] = fvals
+    key = tj[:budget] * (1 << 32) + (fids[:budget] + (1 << 31))
+    fid_s = (torch.sort(key).values & 0xFFFFFFFF) - (1 << 31)
+    return torch.cat([fid_s.to(torch.int32), cnts.to(torch.int32)])
+
+
+class Fused(NamedTuple):
+    """One fused dispatch: the ``[budget + B]`` wire plus the words and the
+    per-topic chunk ids it was decoded from, so a budget regrow re-runs
+    only the tail (``fused_compact_decode``) on the same words."""
+
+    wire: torch.Tensor
+    words: torch.Tensor
+    chunk_ids: torch.Tensor
+
+
+def match_fused(tiles, fid_rows, ttok, tlen, tdollar, chunk_ids, budget: int,
+                layout: Optional[PackedLayout] = None,
+                use_kernel: bool = True) -> Fused:
+    """Words (kernel) → global compaction → fid decode + sort (twin of the
+    JAX ``match_fused_impl``)."""
+    words = words_any(tiles, ttok, tlen, tdollar, chunk_ids, layout=layout,
+                      use_kernel=use_kernel)
+    return Fused(fused_compact_decode(words, fid_rows, chunk_ids, budget),
+                 words, chunk_ids)
+
+
+def match_fused_grouped(tiles, fid_rows, ttok, tlen, tdollar, uniq_cand, inv,
+                        budget: int, layout: Optional[PackedLayout] = None,
+                        use_kernel: bool = True) -> Fused:
+    """Fused dispatch over the deduplicated candidate upload: ``[U, NC]``
+    distinct rows plus a ``[B]`` inverse, expanded by one device gather
+    (twin of ``match_fused_grouped_impl``)."""
+    chunk_ids = uniq_cand[inv.to(torch.int64)].contiguous()
+    return match_fused(tiles, fid_rows, ttok, tlen, tdollar, chunk_ids, budget,
+                       layout, use_kernel)
+
+
+def match_fused_split(tiles, fid_rows, parts, budgets, layout=None,
+                      use_kernel: bool = True):
+    """Fused NC split-dispatch (twin of ``match_fused_split_impl``): every
+    bucket ``(ttok, tlen, tdollar, chunk_ids)`` runs the fused path with its
+    own budget and the wires concatenate, so the batch still costs one
+    fetch. Unlike the JAX split form, each bucket launches the kernel: the
+    CUDA kernel has no batch-multiple constraint.
+    → ``(wire, [Fused per bucket])``."""
+    outs = [match_fused(tiles, fid_rows, *p, budget=g, layout=layout,
+                        use_kernel=use_kernel)
+            for p, g in zip(parts, budgets)]
+    return torch.cat([o.wire for o in outs]), outs
+
+
+def pack_device_rows(t: PartitionedTable) -> np.ndarray:
+    """The device mirror of a table: chunk-tiled ``[up_chunks, L+3, CHUNK]``
+    FIELD-MAJOR rows (tokens + flen + prefix_len + hash|wild flags), active
+    prefix padded to ``_pad_chunk_count`` chunks so table growth does not
+    change the array shape on every new chunk. Padding rows are zeros
+    (flen=0), rejected for every topic.
+
+    Field-major keeps each field's 128 rows contiguous, so the kernel's
+    threads (one per row) read neighbouring words. Tiles ship as int16
+    while the token vocabulary fits (the table's ``_tok_wide``), else
+    int32; flen/prefix_len (≤ L+1) and the 2-bit flags always fit.
+    """
+    up_chunks = _pad_chunk_count(t.nchunks)
+    rows = t.nchunks * CHUNK
+    lvl = t.max_levels
+    dt = np.int32 if t._tok_wide else np.int16
+    packed = np.zeros((up_chunks * CHUNK, lvl + 3), dtype=dt)
+    packed[:rows, :lvl] = t.tok[:rows].astype(dt)
+    packed[:rows, lvl] = t.flen[:rows]
+    packed[:rows, lvl + 1] = t.prefix_len[:rows]
+    packed[:rows, lvl + 2] = t.has_hash[:rows].astype(dt) | (
+        t.first_wild[:rows].astype(dt) << 1
+    )
+    return np.ascontiguousarray(
+        packed.reshape(-1, CHUNK, lvl + 3).transpose(0, 2, 1)
+    )
+
+
+def _pad_chunk_count(nchunks: int) -> int:
+    """Padded device chunk count: pow2 (floor 64) up to 16K chunks so table
+    growth reallocates the resident arrays at most once per bucket; above
+    that pow2 padding wastes up to half the array exactly where tables are
+    huge (10M subs ≈ 83K chunks → a 131072 pad = 200MB of zero tiles), so
+    pad to a multiple of 4096 instead."""
+    if nchunks <= 16384:
+        return max(64, 1 << (nchunks - 1).bit_length())
+    return (nchunks + 4095) // 4096 * 4096
+
+
+def _byte_planes_for_rows(t: PartitionedTable, layout: PackedLayout, rows):
+    """→ ``[n, layout.planes] uint8`` byte planes for the given physical
+    rows (slice or index array): per-level LOCAL token ids (low byte, then
+    the optional high byte) followed by the metadata byte
+    ``flen+1 | has_hash<<5 | first_wild<<6`` (empty rows encode flen+1 = 0;
+    ``prefix_len`` is derivable as ``flen - has_hash`` and not stored)."""
+    tok = t.tok[rows]
+    flen = t.flen[rows]
+    hh = t.has_hash[rows]
+    fw = t.first_wild[rows]
+    planes = np.zeros((len(flen), layout.planes), dtype=np.uint8)
+    p = 0
+    for i, w in enumerate(layout.widths):
+        lut = t._lvl_luts[i]
+        g = tok[:, i].astype(np.int64, copy=False)
+        loc = np.where(g < len(lut), lut[np.minimum(g, len(lut) - 1)], UNK_TOK)
+        planes[:, p] = loc & 0xFF
+        p += 1
+        if w == 2:
+            planes[:, p] = (loc >> 8) & 0xFF
+            p += 1
+    meta = np.where(flen < 0, 0, flen + 1).astype(np.int64)
+    meta = meta | (hh.astype(np.int64) << 5) | (fw.astype(np.int64) << 6)
+    planes[:, p] = meta
+    return planes
+
+
+def pack_device_rows_packed(t: PartitionedTable, layout: PackedLayout) -> np.ndarray:
+    """Bit-packed device mirror: flat ``[up_chunks, groups*CHUNK]`` int32 —
+    four byte planes per int32 lane (encode.group_byte_planes), chunk c's
+    plane g occupying lanes ``[g*CHUNK, (g+1)*CHUNK)`` of row c. Per-chunk
+    tile bytes drop from ``(L+3)*CHUNK*2`` (legacy int16 field-major) to
+    ``groups*CHUNK*4`` — 2816 → 1024 B at the bench's mixed-wildcard shape
+    (L=8, five 1-byte levels + one 2-byte). Padding chunks are zeros
+    (flen+1 = 0 ⇒ empty), rejected for every topic."""
+    up_chunks = _pad_chunk_count(t.nchunks)
+    rows = t.nchunks * CHUNK
+    planes = _byte_planes_for_rows(t, layout, slice(0, rows))
+    arr32 = group_byte_planes(planes, layout.groups)
+    full = np.zeros((up_chunks * CHUNK, layout.groups), dtype=np.int32)
+    full[:rows] = arr32
+    return np.ascontiguousarray(
+        full.reshape(up_chunks, CHUNK, layout.groups)
+        .transpose(0, 2, 1)
+        .reshape(up_chunks, layout.groups * CHUNK)
+    )
+
+
+def pack_chunk_tiles_packed(
+    t: PartitionedTable, cids: Sequence[int], layout: PackedLayout
+) -> np.ndarray:
+    """Delta-upload payload for the packed format: only the given chunks,
+    same flat int32 lane layout as ``pack_device_rows_packed`` so tiles
+    scatter straight into the resident array by leading-axis index."""
+    k = len(cids)
+    cid_arr = np.asarray(cids, dtype=np.int64)
+    rows = (cid_arr[:, None] * CHUNK + np.arange(CHUNK, dtype=np.int64)).reshape(-1)
+    planes = _byte_planes_for_rows(t, layout, rows)
+    arr32 = group_byte_planes(planes, layout.groups)
+    return np.ascontiguousarray(
+        arr32.reshape(k, CHUNK, layout.groups)
+        .transpose(0, 2, 1)
+        .reshape(k, layout.groups * CHUNK)
+    )
+
+
+def pack_fid_rows(t: PartitionedTable) -> np.ndarray:
+    """Device-resident row→fid map ``[up_chunks, CHUNK]`` int32 (the fused
+    pipeline resolves matched rows to filter ids ON DEVICE, so only final
+    fids cross to the host). -1 marks empty rows; a -1 escaping through the
+    fused output means a cleared row matched — a device bug the host fails
+    loudly on. int32 bounds fids at 2^31 ``add()`` calls."""
+    up_chunks = _pad_chunk_count(t.nchunks)
+    rows = t.nchunks * CHUNK
+    out = np.full((up_chunks * CHUNK,), -1, dtype=np.int32)
+    out[:rows] = t._fid_of_row[:rows]
+    return out.reshape(up_chunks, CHUNK)
+
+
+def pack_fid_chunk_tiles(t: PartitionedTable, cids: Sequence[int]) -> np.ndarray:
+    """Dirty-chunk slices of the device fid map (delta refresh payload)."""
+    cid_arr = np.asarray(cids, dtype=np.int64)
+    rows = (cid_arr[:, None] * CHUNK + np.arange(CHUNK, dtype=np.int64)).reshape(-1)
+    return t._fid_of_row[rows].astype(np.int32).reshape(len(cids), CHUNK)
+
+
+def pack_chunk_tiles(t: PartitionedTable, cids: Sequence[int], dt) -> np.ndarray:
+    """Pack ONLY the given chunks into device tiles ``[K, L+3, CHUNK]`` —
+    the delta-upload payload (same field-major layout as
+    ``pack_device_rows``, so tiles scatter straight into the resident
+    array by leading-axis index)."""
+    lvl = t.max_levels
+    k = len(cids)
+    cid_arr = np.asarray(cids, dtype=np.int64)
+    rows = (cid_arr[:, None] * CHUNK + np.arange(CHUNK, dtype=np.int64)).reshape(-1)
+    packed = np.zeros((k * CHUNK, lvl + 3), dtype=dt)
+    packed[:, :lvl] = t.tok[rows].astype(dt)
+    packed[:, lvl] = t.flen[rows]
+    packed[:, lvl + 1] = t.prefix_len[rows]
+    packed[:, lvl + 2] = t.has_hash[rows].astype(dt) | (
+        t.first_wild[rows].astype(dt) << 1
+    )
+    return np.ascontiguousarray(
+        packed.reshape(k, CHUNK, lvl + 3).transpose(0, 2, 1)
+    )
+
+
+def delta_chunk_plan(t: PartitionedTable, *, enabled: bool, dev_version: int,
+                     has_resident: bool, dev_epoch: int, dev_lvl: int,
+                     dev_dtype, dt, dev_up_chunks: int,
+                     dev_layout=None, layout=None):
+    """The delta-refresh validity gate: → dirty chunk ids (possibly empty) when a
+    scatter refresh is sound, else None (caller full-uploads). The gate is
+    correctness-critical — a condition added here must hold for all
+    consumers, which is why it lives in one place. ``dev_layout``/``layout``
+    compare the resident vs current bit-packed tile layout (both None for
+    legacy tiles): any width/depth/format change is a wholesale relayout."""
+    if (
+        not enabled
+        or dev_version < 0
+        or not has_resident
+        or dev_epoch != t.layout_epoch
+        or dev_lvl != t.max_levels
+        or dev_dtype != dt
+        or dev_layout != layout
+        or t.nchunks > dev_up_chunks
+    ):
+        return None
+    cids = t.delta.since(dev_version)
+    if cids is None or len(cids) > max(64, t.nchunks // 2):
+        return None  # journal too old / delta no cheaper than a repack
+    return cids
+
+
+class _Snap:
+    """A resident device snapshot's identity: the table (version, layout
+    epoch) it mirrors plus the host row→fid map array AS OF that version."""
+
+    __slots__ = ("version", "epoch", "fid_map")
+
+    def __init__(self, version: int, epoch: int, fid_map: np.ndarray) -> None:
+        self.version = version
+        self.epoch = epoch
+        self.fid_map = fid_map
+
+
+class DeviceState:
+    """The resident device mirror of a table: tiles (packed or legacy), the
+    row→fid map, and the table state they mirror (``snap``). ``lvl`` and
+    ``dtype`` are what the delta gate compares (the table's ``max_levels``
+    and the tile dtype at pack time)."""
+
+    __slots__ = ("tiles", "fids", "layout", "snap", "lvl", "dtype")
+
+    def __init__(self, tiles, fids, layout, snap, lvl, dtype):
+        self.tiles = tiles
+        self.fids = fids
+        self.layout = layout
+        self.snap = snap
+        self.lvl = lvl
+        self.dtype = dtype
+
+
+def device_state_from_numpy(tiles: np.ndarray, fid_rows: np.ndarray, widths,
+                            version: int, epoch: int, fid_map: np.ndarray,
+                            device=None, lvl: Optional[int] = None) -> DeviceState:
+    """Install host arrays as a resident device snapshot: ``tiles`` as
+    ``pack_device_rows_packed`` (``widths`` = its layout's widths) or
+    ``pack_device_rows`` (``widths`` = None) return them, ``fid_rows`` as
+    ``pack_fid_rows`` does — from this package or from the JAX package,
+    whose arrays are identical. ``version``/``epoch``/``fid_map`` name the
+    table state they mirror; ``lvl`` is the table's ``max_levels`` at pack
+    time (legacy tiles imply it; unknown for packed tiles means the first
+    refresh re-uploads rather than trusting a delta)."""
+    dev = resolve_device(device)
+    tiles = np.asarray(tiles)
+    fid_rows = np.asarray(fid_rows, dtype=np.int32)
+    layout = PackedLayout(tuple(int(w) for w in widths)) if widths is not None else None
+    if layout is not None:
+        if tiles.ndim != 2 or tiles.shape[1] != layout.groups * CHUNK \
+                or tiles.dtype != np.int32:
+            raise ValueError(f"packed tiles {tiles.shape} {tiles.dtype} do not "
+                             f"fit layout {layout}")
+    elif tiles.ndim != 3 or tiles.shape[2] != CHUNK \
+            or tiles.dtype not in (np.int16, np.int32):
+        raise ValueError(f"legacy tiles {tiles.shape} {tiles.dtype} are not "
+                         f"[n, L+3, {CHUNK}] int16/int32")
+    if fid_rows.shape != (tiles.shape[0], CHUNK):
+        raise ValueError(f"fid rows {fid_rows.shape} do not fit {tiles.shape[0]} tiles")
+    if lvl is None:
+        lvl = tiles.shape[1] - 3 if layout is None else -1
+    return DeviceState(
+        to_device(tiles, dev), to_device(fid_rows, dev), layout,
+        _Snap(version, epoch, fid_map), lvl, tiles.dtype.type)
+
+
+class PartitionedMatcher:
+    """Device mirror + batched fused match over a ``PartitionedTable``.
+
+    The port covers the JAX matcher's global/fused mode: every batch runs
+    the words kernel and the fused tail, and each handle completes with one
+    fetch. On a CUDA device the kernels always run (no verify-and-race, no
+    fallback); ``use_kernel = False`` runs the plain words twin instead,
+    which the on-card reference check of ``chip_smoke.py`` uses.
+
+    Env knobs (as in the JAX package): ``RMQTT_PACKED=0`` keeps legacy
+    tiles, ``RMQTT_NC_SPLIT=0`` disables the NC split, ``RMQTT_DELTA_UPLOADS=0``
+    forces full uploads, ``RMQTT_PAD_FLOOR`` seeds and pins the pad floor.
+    """
+
+    SPLIT_MIN_BATCH = 1024  # small batches are dispatch-bound, not compute
+
+    def __init__(self, table: PartitionedTable, device=None) -> None:
+        self.table = table
+        self.device = resolve_device(device)
+        # sticky pow2 slot budgets PER (padded batch, NC) shape: one shared
+        # budget would let a 16K-topic batch inflate every later 1-topic
+        # match's fetch
+        self._budgets: Dict[Tuple[int, int], int] = {}
+        self._split = os.environ.get("RMQTT_NC_SPLIT", "1") != "0"
+        self._packed_pref = os.environ.get("RMQTT_PACKED", "1") != "0"
+        self.delta_enabled = os.environ.get("RMQTT_DELTA_UPLOADS", "1") != "0"
+        self._pad_floor_pinned = os.environ.get("RMQTT_PAD_FLOOR", "") != ""
+        self._pad_floor = max(1, int(os.environ.get("RMQTT_PAD_FLOOR", "1")))
+        self.use_kernel = True
+        self._u_cap = 1  # sticky pow2 row count of the grouped upload
+        self._dev: Optional[DeviceState] = None
+        self.fused_batches = 0
+        self.uploads = 0  # refresh events that shipped bytes (full + delta)
+        self.full_uploads = 0
+        self.delta_uploads = 0
+        self.upload_bytes = 0
+        # per-stage wall-clock attribution (host clocks; fetch includes the
+        # wait for the device): zero-overhead when off
+        self.stage_timing = False
+        self.stage_ns = {"encode": 0, "dispatch": 0, "fetch": 0, "decode": 0}
+
+    # ------------------------------------------------------ device mirror
+    def install(self, state: DeviceState) -> None:
+        """Make ``state`` the resident snapshot (``device_state_from_numpy``)."""
+        if state.tiles.device != self.device:
+            raise ValueError(f"state on {state.tiles.device}, matcher on {self.device}")
+        self._dev = state
+
+    def _refresh(self) -> DeviceState:
+        t = self.table
+        st = self._dev
+        if st is not None and st.snap.version == t.version:
+            return st
+        with t._mu:
+            st = self._dev
+            if st is not None and st.snap.version == t.version:
+                return st
+            # bit-packed tiles while the table is packable (and not opted
+            # out); the layout token — not the dtype — is what the delta
+            # gate compares for relayout detection
+            layout = t.packed_layout() if self._packed_pref else None
+            dt = np.int32 if layout is not None or t._tok_wide else np.int16
+            if self._try_delta_refresh(t, dt, layout):
+                return self._dev
+            # full path: only the host-side PACK runs under the lock; the
+            # upload below must not stall subscribes. Mutations that land
+            # during the upload stay pending: the version installed is the
+            # one captured here.
+            packed = (pack_device_rows_packed(t, layout) if layout is not None
+                      else pack_device_rows(t))
+            fids2d = pack_fid_rows(t)
+            version, epoch, lvl = t.version, t.layout_epoch, t.max_levels
+            fid_map = t._fid_of_row
+        self._dev = device_state_from_numpy(
+            packed, fids2d, layout.widths if layout is not None else None,
+            version, epoch, fid_map, self.device, lvl=lvl)
+        self.uploads += 1
+        self.full_uploads += 1
+        self.upload_bytes += packed.nbytes + fids2d.nbytes
+        return self._dev
+
+    def _try_delta_refresh(self, t: PartitionedTable, dt, layout) -> bool:
+        """Write only the dirty chunks into the resident arrays. Possible
+        iff the layout epoch, row width, tile dtype, packed layout and
+        padded capacity all still match the resident snapshot; otherwise
+        (or when the delta journal overflowed) the caller full-uploads.
+
+        The tiles update IN PLACE (``index_copy_``; the JAX version builds
+        a new array): a handle in flight already holds its words, launched
+        earlier on the same stream. The fid map is copied on write, because
+        a handle's budget regrow re-decodes through the map it was
+        submitted with."""
+        st = self._dev
+        if st is None:
+            return False
+        cids = delta_chunk_plan(
+            t, enabled=self.delta_enabled, dev_version=st.snap.version,
+            has_resident=True, dev_epoch=st.snap.epoch, dev_lvl=st.lvl,
+            dev_dtype=st.dtype, dt=dt, dev_up_chunks=st.tiles.shape[0],
+            dev_layout=st.layout, layout=layout,
+        )
+        if cids is None:
+            return False
+        if cids:
+            tiles = (pack_chunk_tiles_packed(t, cids, layout)
+                     if layout is not None else pack_chunk_tiles(t, cids, dt))
+            ftiles = pack_fid_chunk_tiles(t, cids)
+            idx = to_device(np.asarray(cids, dtype=np.int64), self.device)
+            st.tiles.index_copy_(0, idx, to_device(tiles, self.device))
+            st.fids = st.fids.clone().index_copy_(
+                0, idx, to_device(ftiles, self.device))
+            self.uploads += 1
+            self.delta_uploads += 1
+            self.upload_bytes += tiles.nbytes + ftiles.nbytes
+        st.snap = _Snap(t.version, st.snap.epoch, t._fid_of_row)
+        return True
+
+    # ------------------------------------------------------------- submit
+    def _put(self, arr: np.ndarray, dtype=np.int32) -> torch.Tensor:
+        """One per-batch host input → device, widened on the host (the
+        kernels take int32; torch has thin uint16 support)."""
+        return to_device(np.asarray(arr).astype(dtype, copy=False), self.device)
+
+    def match_submit(self, topics: Sequence[str], pad_to_pow2: bool = True):
+        """Encode + dispatch WITHOUT fetching: the device work is queued on
+        the current stream, so the caller can encode batch N+1 while N
+        computes, then ``match_complete`` each handle in order."""
+        t = self.table
+        if t.compact_async:
+            # churn-triggered background compaction: the rebuild runs on
+            # its own thread while dispatches keep matching against the
+            # fragmented-but-correct old layout
+            t.maybe_compact_async()
+        elif t.needs_compact():
+            t.compact()
+        b = len(topics)
+        if b == 0:
+            return ("e",)
+        padded = b
+        if pad_to_pow2:
+            padded = max(1 << (b - 1).bit_length(), self._pad_floor)
+        t_enc = time.perf_counter_ns() if self.stage_timing else 0
+        while True:
+            enc, enc_epoch = t.encode_topics_versioned(
+                topics, pad_batch_to=padded, with_groups=True)
+            st = self._refresh()
+            if st.snap.epoch != enc_epoch:
+                # a compaction installed between the encode and the
+                # refresh: the chunk ids reference the old layout — re-encode
+                continue
+            if st.layout is not None:
+                # packed tiles: topic tokens re-key into the per-level local
+                # id spaces; a layout change racing the refresh re-encodes
+                lay, tt = t.translate_packed(enc[0])
+                if lay != st.layout:
+                    continue
+            else:
+                tt = enc[0]
+            break
+        _ttok, tlen, tdollar, chunk_ids, _nc, groups = enc
+        if t_enc:
+            now = time.perf_counter_ns()
+            self.stage_ns["encode"] += now - t_enc
+            t_enc = now
+        try:
+            split = self._split_plan(chunk_ids, b)
+            if split is not None:
+                return self._submit_fused_split(st, tt, tlen, tdollar,
+                                                chunk_ids, split)
+            return self._submit_fused(st, tt, tlen, tdollar, chunk_ids,
+                                      groups, padded, b)
+        finally:
+            if t_enc:
+                self.stage_ns["dispatch"] += time.perf_counter_ns() - t_enc
+
+    # ------------------------------------------------- NC split-dispatch
+    @staticmethod
+    def _tier_ladder(nc: int) -> Tuple[int, ...]:
+        """NC tiers: ~1.5×-step ladder (8, 12, 16, 24, 32, 48, …) capped
+        at nc. Batches concentrate in a narrow count band just under the
+        sticky pow2 cap (cfg3: about 12 real candidates against a cap of
+        32), so the 1.5 steps put a tier close above the band while
+        small-bucket upward merging keeps the bucket count low."""
+        tiers: List[int] = []
+        k = 0
+        while (8 << k) < nc:
+            tiers.append(8 << k)
+            if (12 << k) < nc:
+                tiers.append(12 << k)
+            k += 1
+        tiers.append(nc)
+        return tuple(tiers)
+
+    def _split_plan(self, chunk_ids: np.ndarray, b: int):
+        """Bucket the REAL topics (not the pow2 pad) by candidate count;
+        None when splitting can't save ≥25% of the scan work (the padding
+        rows each bucket re-adds are part of the estimate)."""
+        nc = chunk_ids.shape[1]
+        if not self._split or b < self.SPLIT_MIN_BATCH or nc <= 8:
+            return None
+        counts = (chunk_ids[:b] != 0).sum(axis=1)
+        tiers = np.asarray(self._tier_ladder(nc))
+        assign = np.searchsorted(tiers, counts)  # smallest tier ≥ count
+        sizes = np.bincount(assign, minlength=len(tiers))
+        # merge small buckets upward (a bucket in a bigger tier stays
+        # correct — extra columns are zero-padded): a tiny bucket saves
+        # less compute than its launches and pow2 padding cost
+        floor = max(256, b // 16)
+        for i in range(len(tiers) - 1):
+            if 0 < sizes[i] < floor:
+                sizes[i + 1] += sizes[i]
+                sizes[i] = 0
+                assign[assign == i] = i + 1
+        est = sum(
+            (1 << (int(s) - 1).bit_length()) * int(t)
+            for s, t in zip(sizes, tiers) if s
+        )
+        if est * 4 >= b * nc * 3:
+            return None
+        order = np.argsort(assign, kind="stable")
+        return order, sizes, tuple(int(t) for t in tiers)
+
+    def _budget_for(self, padded: int, nc: int) -> int:
+        g = self._budgets.get((padded, nc))
+        if g is None:
+            g = max(256, 1 << (4 * padded - 1).bit_length())
+            self._budgets[(padded, nc)] = g
+        return g
+
+    def _group_inputs(self, groups: np.ndarray, chunk_ids: np.ndarray):
+        """→ (uniq_cand [U_pow2, NC], inv [B]) for the grouped upload, or
+        None when the batch doesn't dedup (uniform streams barely share
+        prefixes; devices republishing the same topics collapse U)."""
+        uq, first_idx, inv = np.unique(
+            groups, return_index=True, return_inverse=True
+        )
+        u = len(uq)
+        u_pow2 = 1 << (max(1, u) - 1).bit_length()
+        if u_pow2 >= groups.shape[0]:
+            # no dedup (or a batch so small the pow2 bucket erases it):
+            # the plain [B, NC] upload is strictly cheaper
+            return None
+        self._u_cap = max(self._u_cap, u_pow2)
+        uniq_cand = np.zeros((self._u_cap, chunk_ids.shape[1]),
+                             dtype=chunk_ids.dtype)
+        uniq_cand[:u] = chunk_ids[first_idx]
+        return uniq_cand, inv.reshape(-1)
+
+    # ------------------------------------------------- fused pipeline
+    def _submit_fused(self, st: DeviceState, tt, tlen, tdollar, chunk_ids,
+                      groups, padded: int, b: int):
+        g = self._budget_for(padded, chunk_ids.shape[1])
+        ins = (self._put(tt), self._put(tlen), self._put(tdollar))
+        grouped = self._group_inputs(groups, chunk_ids)
+        if grouped is None:
+            out = match_fused(st.tiles, st.fids, *ins, self._put(chunk_ids),
+                              g, st.layout, self.use_kernel)
+        else:
+            uniq, inv = grouped
+            out = match_fused_grouped(st.tiles, st.fids, *ins, self._put(uniq),
+                                      self._put(inv, np.int64), g, st.layout,
+                                      self.use_kernel)
+        return ("f", b, out, g, st.fids)
+
+    def _submit_fused_split(self, st: DeviceState, tt, tlen, tdollar,
+                            chunk_ids, split):
+        """Fused NC split-dispatch: topics bucketed host-side by candidate
+        count, one fused pass per bucket, one fetch for the batch."""
+        order, sizes, tiers = split
+        b = len(order)
+        parts: List[Tuple] = []
+        meta: List[Tuple[int, int, int]] = []  # (nb, padded_b, tier)
+        budgets: List[int] = []
+        pos = 0
+        for tier, s in zip(tiers, sizes):
+            s = int(s)
+            if not s:
+                continue
+            idx = order[pos : pos + s]
+            pos += s
+            pb = 1 << (s - 1).bit_length() if s > 1 else 1
+            pt = np.zeros((pb, tt.shape[1]), dtype=tt.dtype)
+            pt[:s] = tt[idx]
+            pl = np.full((pb,), -2, dtype=tlen.dtype)
+            pl[:s] = tlen[idx]
+            pd = np.zeros((pb,), dtype=bool)
+            pd[:s] = tdollar[idx]
+            # candidate lists are stored front-packed, so a count ≤ tier
+            # topic's chunks all live in the first `tier` columns
+            pc = np.zeros((pb, tier), dtype=chunk_ids.dtype)
+            pc[:s] = chunk_ids[idx, :tier]
+            parts.append(tuple(self._put(a) for a in (pt, pl, pd, pc)))
+            meta.append((s, pb, tier))
+            budgets.append(self._budget_for(pb, tier))
+        wire, outs = match_fused_split(st.tiles, st.fids, parts, budgets,
+                                       st.layout, self.use_kernel)
+        return ("fs", b, order, meta, outs, wire, tuple(budgets), st.fids)
+
+    def _regrow(self, n: int, key: Tuple[int, int]) -> int:
+        """Sticky pow2 budget regrow for a batch shape whose routes
+        overflowed its budget."""
+        g = 1 << max(8, (n - 1).bit_length())
+        self._budgets[key] = max(self._budgets.get(key, 0), g)
+        return g
+
+    def _complete_fused(self, handle) -> List[np.ndarray]:
+        """Block on a fused handle: ONE fetch of ``[fids..., cnts...]``;
+        the host's whole decode is an ``np.split`` by counts."""
+        _tag, b, out, g, fids = handle
+        t0 = time.perf_counter_ns() if self.stage_timing else 0
+        while True:
+            arr = fetch(out.wire)
+            cn = arr[g:].astype(np.int64)
+            n = int(cn.sum())
+            if n <= g:
+                break
+            g = self._regrow(n, tuple(out.chunk_ids.shape))
+            out = out._replace(
+                wire=fused_compact_decode(out.words, fids, out.chunk_ids, g))
+        if t0:
+            now = time.perf_counter_ns()
+            self.stage_ns["fetch"] += now - t0
+            t0 = now
+        if cn[b:].any():
+            # a padded topic (tlen=-2, can match nothing) with routes is a
+            # device bug: fail loudly
+            raise AssertionError("padded topic produced routes — device bug")
+        res = self._split_fused_wire(arr, cn, n, b)
+        self.fused_batches += 1
+        if t0:
+            self.stage_ns["decode"] += time.perf_counter_ns() - t0
+        return res
+
+    @staticmethod
+    def _split_fused_wire(arr, cn, n: int, b: int) -> List[np.ndarray]:
+        flat = arr[:n].astype(np.int64)
+        if n and int(flat.min()) < 0:
+            # a -1 here means a cleared row's bit survived to the final
+            # output — device or compaction bug, never valid concurrency
+            raise AssertionError(
+                "cleared-row fid escaped the fused device decode")
+        bounds = np.cumsum(cn[: b - 1])
+        return np.split(flat, bounds)
+
+    def _complete_fused_split(self, handle) -> List[np.ndarray]:
+        _tag, b, order, meta, outs, wire, budgets, fids = handle
+        t0 = time.perf_counter_ns() if self.stage_timing else 0
+        while True:
+            arr = fetch(wire)
+            segs = []
+            regrow = list(budgets)
+            ok = True
+            o = 0
+            for bi, ((_s, pb, tier), g) in enumerate(zip(meta, budgets)):
+                fid_seg = arr[o : o + g]
+                cn = arr[o + g : o + g + pb].astype(np.int64)
+                o += g + pb
+                segs.append((fid_seg, cn))
+                n = int(cn.sum())
+                if n > g:
+                    ok = False
+                    regrow[bi] = self._regrow(n, (pb, tier))
+            if ok:
+                break
+            budgets = tuple(regrow)
+            wire = torch.cat([
+                fused_compact_decode(f.words, fids, f.chunk_ids, g)
+                for f, g in zip(outs, budgets)])
+        if t0:
+            now = time.perf_counter_ns()
+            self.stage_ns["fetch"] += now - t0
+            t0 = now
+        res: List[Optional[np.ndarray]] = [None] * b
+        pos = 0
+        for (s, _pb, _tier), (fid_seg, cn) in zip(meta, segs):
+            if cn[s:].any():
+                raise AssertionError("padded topic produced routes — device bug")
+            rows = self._split_fused_wire(fid_seg, cn, int(cn.sum()), s)
+            for orig, r in zip(order[pos : pos + s], rows):
+                res[orig] = r
+            pos += s
+        self.fused_batches += 1
+        if t0:
+            self.stage_ns["decode"] += time.perf_counter_ns() - t0
+        return res
+
+    def match_complete(self, handle) -> List[np.ndarray]:
+        """Block on a ``match_submit`` handle → per-topic fid arrays
+        (ascending)."""
+        if handle[0] == "e":
+            return []
+        if handle[0] == "f":
+            return self._complete_fused(handle)
+        return self._complete_fused_split(handle)
+
+    def match(self, topics: Sequence[str], pad_to_pow2: bool = True) -> List[np.ndarray]:
+        return self.match_complete(self.match_submit(topics, pad_to_pow2))
+
+    # ------------------------------------------------------------- knobs
+    def prewarm(self, batch_sizes: Sequence[int] = (1, 8)) -> None:
+        """Latch the largest size as the sticky pad floor (small batches
+        pad UP to it), unless ``RMQTT_PAD_FLOOR`` pinned the floor. The
+        port compiles nothing per shape, so this only latches the floor."""
+        sizes = [int(s) for s in batch_sizes if s > 0]
+        if sizes and not self._pad_floor_pinned:
+            self._pad_floor = max(self._pad_floor, max(sizes))
+
+    def set_pad_floor(self, floor: int) -> int:
+        """Set the sticky pad floor to an exact value (may LOWER it, unlike
+        ``prewarm``). → the old floor."""
+        old = self._pad_floor
+        self._pad_floor = max(1, int(floor))
+        return old
+
+    def hbm_breakdown(self) -> dict:
+        """Device-memory occupancy model of this matcher's residency: tiles
+        (packed or legacy), the row→fid map, plus what legacy field-major
+        tiles would cost at the same padded capacity and the host-side
+        overlay journal depth."""
+        st = self._dev
+        tiles = st.tiles.numel() * st.tiles.element_size() if st is not None else 0
+        fid = st.fids.numel() * st.fids.element_size() if st is not None else 0
+        t = self.table
+        up = st.tiles.shape[0] if st is not None else _pad_chunk_count(t.nchunks)
+        legacy = up * CHUNK * (t.max_levels + 3) * (4 if t._tok_wide else 2)
+        return {
+            "layout": "packed" if st is not None and st.layout is not None
+            else "legacy",
+            "tiles_bytes": tiles,
+            "fid_map_bytes": fid,
+            "legacy_tiles_bytes_model": int(legacy),
+            "overlay_journal_entries": len(t._fid_undo_v),
+            "total_bytes": tiles + fid,
+        }

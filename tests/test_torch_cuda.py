@@ -1,0 +1,115 @@
+"""The CUDA kernels on a card: each against its plain twin, and the router
+on the card against the same router on the CPU.
+
+This file imports nothing of JAX, so it also runs where JAX is not
+installed: ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
+on a machine with an NVIDIA GPU (``tests/conftest.py`` imports JAX).
+Every test here skips where torch sees no CUDA device."""
+
+import random
+
+import numpy as np
+import pytest
+import torch
+
+import rmqtt_tpu_torch.ops.match_words as MW
+import rmqtt_tpu_torch.ops.partitioned as TP
+from rmqtt_tpu_torch.bench.workloads import gen_mixed, gen_topics_uniform
+from rmqtt_tpu_torch.router import Id, SubscriptionOptions, TorchRouter
+
+FORMATS = ["packed", "legacy_int16", "legacy_int32"]
+
+
+@pytest.fixture()
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _inputs(fmt, dev):
+    """A ~700-filter table with a 2-byte level, 40 topics (padded and $
+    topics among them) → the kernel arguments on ``dev`` and the layout."""
+    rng = random.Random(0)
+    t = TP.PartitionedTable()
+    seen = set()
+    while len(seen) < 700:
+        depth = rng.randint(1, 6)
+        levels = [f"v{d}_{rng.randrange(600 if d == 2 else 6)}" for d in range(depth)]
+        r = rng.random()
+        if r < 0.35:
+            levels[rng.randrange(depth)] = "+"
+        if 0.25 <= r < 0.55:
+            levels[-1] = "#"
+        if rng.random() < 0.05:
+            levels[0] = "$sys"
+        f = "/".join(levels)
+        if f not in seen:
+            seen.add(f)
+            t.add(f)
+    topics = ["/".join(f"v{d}_{rng.randrange(600 if d == 2 else 7)}"
+                       for d in range(rng.randint(1, 8))) for _ in range(37)]
+    topics += ["$sys/v1_1/v2_3", "$sys"]
+    ttok, tlen, tdollar, cids, _nc = t.encode_topics(topics, pad_batch_to=40)
+    lay = t.packed_layout() if fmt == "packed" else None
+    if lay is not None:
+        assert 2 in lay.widths
+        _, ttok = t.translate_packed(ttok)
+        tiles = TP.pack_device_rows_packed(t, lay)
+    else:
+        tiles = TP.pack_device_rows(t)
+        if fmt == "legacy_int32":
+            tiles = tiles.astype(np.int32)
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    args = (put(tiles), put(ttok.astype(np.int32)), put(tlen.astype(np.int32)),
+            put(tdollar.astype(np.int32)), put(cids.astype(np.int32)))
+    return args, lay
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_kernel_equals_plain_on_cuda(cuda, fmt):
+    args, lay = _inputs(fmt, cuda)
+    n0 = MW.match_words_packed.launches + MW.match_words_legacy.launches
+    if lay is not None:
+        got = MW.match_words_packed(*args, layout=lay)
+        want = MW.match_words_packed_plain(*args, layout=lay)
+    else:
+        got = MW.match_words_legacy(*args)
+        want = MW.match_words_legacy_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and bool((want != 0).any())
+    assert MW.match_words_packed.launches + MW.match_words_legacy.launches == n0 + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [True, False])
+def test_router_on_cuda_equals_cpu(cuda, packed, monkeypatch):
+    """The same ~2K filters and topics through ``TorchRouter`` on the card
+    (kernels) and on the CPU (plain twins), a batch big enough for the NC
+    split, before and after churn (a delta upload on the card)."""
+    monkeypatch.setenv("RMQTT_PACKED", "1" if packed else "0")
+    routers = [TorchRouter(device=cuda), TorchRouter(device="cpu")]
+    rng = random.Random(1)
+    filters = gen_mixed(rng, 2000)
+    opts = SubscriptionOptions()
+    for r in routers:
+        for i, f in enumerate(filters):
+            r.add(f, Id(1, f"c{i}"), opts)
+        r.table.compact()  # the churn below stays under the compaction trigger
+    topics = gen_topics_uniform(rng, 1100)
+    counter = MW.match_words_packed if packed else MW.match_words_legacy
+    n0 = counter.launches
+    got, want = (r.matcher.match(topics) for r in routers)
+    assert counter.launches > n0
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))
+    assert sum(len(w) for w in want) > 1000
+    for r in routers:
+        for i, f in enumerate(filters[:300]):
+            r.remove(f, Id(1, f"c{i}"))
+        for j, f in enumerate(gen_mixed(random.Random(2), 300)):
+            r.add(f, Id(1, f"n{j}"), opts)
+    got, want = (r.matcher.match(topics) for r in routers)
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))
+    m = routers[0].matcher
+    assert (m.full_uploads, m.delta_uploads) == (1, 1)
