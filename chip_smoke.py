@@ -12,8 +12,14 @@ Phases, each of which fails the run (nonzero exit, no result line):
 3. kernels — each match-words kernel against its plain PyTorch twin
    (``torch.equal``) at cfg3's shapes (B=16384, NC=32) on the real cfg3
    table and on random tiles, plus edge cases (odd B, NC=1, padded topics,
-   chunk 0, $-topics, a 2-byte level); each kernel and twin timed with
-   CUDA events;
+   chunk 0, $-topics, a 2-byte level) and ``bench/words_cases.py``'s
+   ``EDGE_CASES`` (NC=33 and 64, B=1 and 3, chunk 0 at the front, in the
+   middle and repeated, a nonzero id repeated, out-of-range ids giving zero
+   words, every packed group count up to 30 levels / 16 groups, legacy L
+   up to 40); each kernel and twin timed with CUDA events at B=16384,
+   NC=32, and the kernel at the NC split's bucket shapes of that batch
+   (their per-batch sum) and on a small set of tiles; bounds at the FP32 and
+   the integer rate;
 4. cfg3 end to end through ``TorchRouter`` on packed tiles: 1M ``gen_mixed``
    filters (seed 0), 32,768 ``gen_topics_uniform`` topics in batches of
    16,384, pipelined (depth 2) and serial; a 2,048-topic sample checked
@@ -47,15 +53,21 @@ import time
 import numpy as np
 import torch
 
+from rmqtt_tpu_torch.bench.words_cases import (EDGE_CASES, make_case,
+                                               random_legacy_tiles,
+                                               random_packed_tiles, random_topics)
 from rmqtt_tpu_torch.bench.workloads import gen_mixed, gen_topics_uniform
 from rmqtt_tpu_torch.core.trie import TopicTree
 from rmqtt_tpu_torch.ops import match_words as MW
 from rmqtt_tpu_torch.ops._build import SOURCE, kernel_library
-from rmqtt_tpu_torch.ops.encode import PackedLayout, group_byte_planes
+from rmqtt_tpu_torch.ops.encode import PackedLayout
+from rmqtt_tpu_torch.ops.partitioned import split_buckets
 from rmqtt_tpu_torch.router import Id, SubscriptionOptions, TorchRouter
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
-SCALAR_OPS_PER_S = 67e12  # H100 SXM non-tensor (float32) rate; int32 is not faster
+SCALAR_OPS_PER_S = 67e12  # H100 SXM non-tensor FP32 rate (an FMA counts as two)
+INT_OPS_PER_S = 64 * 132 * 1.98e9  # integer pipe: 64 ops/clk/SM, 132 SMs, 1.98 GHz
+SMALL_SET = 64  # tiles: 64 KB packed, 176 KB legacy int16 (an SM's L1 is 256 KB)
 KERNEL_SOURCE = "rmqtt_tpu_torch/csrc/match_words.cu"
 REPLACES = {
     "match_words_packed": "rmqtt_tpu/ops/pallas_match.py:288",
@@ -107,13 +119,28 @@ def time_cuda(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def time_graph(fn, reps: int, per_graph: int = 20) -> float:
+    """Device ms per call: ``per_graph`` calls captured in one CUDA graph,
+    replayed ``reps`` times between CUDA events. Unlike :func:`time_cuda`
+    this leaves out the host's launch path, which is longer than a small
+    kernel."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(per_graph):
+            fn()
+    return time_cuda(g.replay, reps) / per_graph
+
+
 def words_bound_ms(tiles, ttok, chunk_ids, nlvl: int):
     """Least time for one words call on these inputs: the larger of the
     bytes it must move (each referenced tile, each input read once, the
     words written once) over the memory rate and its integer operations
     (~(2*nlvl+6) per row tested) over the scalar rate. Chunk 0 is the
     table's empty chunk: a slot naming it (padding) needs no tile read and
-    no row test, only its zero words."""
+    no row test, only its zero words. → (bound ms, "bytes" or
+    "operations", the same bound with the operations at the integer rate)."""
     b, nc = chunk_ids.shape
     tile_bytes = tiles[0].numel() * tiles.element_size()
     real = chunk_ids != 0
@@ -123,7 +150,9 @@ def words_bound_ms(tiles, ttok, chunk_ids, nlvl: int):
     ops = int(real.sum()) * MW.CHUNK * (2 * nlvl + 6)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / SCALAR_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    t_int = ops / INT_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"),
+            max(t_bytes, t_int))
 
 
 # ------------------------------------------------------------ phase 1, 2
@@ -151,52 +180,21 @@ def phase_build() -> None:
 
 
 # ---------------------------------------------------------------- phase 3
-def _random_packed(rng: np.random.Generator, layout: PackedLayout, n: int):
-    """Random packed tiles whose bytes fall in small ranges so that rows do
-    match: level bytes 0..7 (1 = '+'), 2-byte levels with high bytes 0..1,
-    meta = flen+1 in 0..7 | has_hash<<5 | first_wild<<6. Chunk 0 is random
-    too — the kernel must agree with its twin on any tile."""
-    planes = np.zeros((n * MW.CHUNK, layout.planes), dtype=np.uint8)
-    p = 0
-    for w in layout.widths:
-        planes[:, p] = rng.integers(0, 8, len(planes))
-        p += 1
-        if w == 2:
-            planes[:, p] = rng.integers(0, 2, len(planes))
-            p += 1
-    planes[:, p] = (rng.integers(0, 8, len(planes))
-                    | (rng.integers(0, 2, len(planes)) << 5)
-                    | (rng.integers(0, 2, len(planes)) << 6))
-    lanes = group_byte_planes(planes, layout.groups)
-    return np.ascontiguousarray(
-        lanes.reshape(n, MW.CHUNK, layout.groups).transpose(0, 2, 1)
-        .reshape(n, layout.groups * MW.CHUNK))
+def _put(a, dev) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
 
 
-def _random_legacy(rng: np.random.Generator, lvl: int, n: int, dtype):
-    tiles = np.zeros((n, lvl + 3, MW.CHUNK), dtype=dtype)
-    tiles[:, :lvl] = rng.integers(0, 8, (n, lvl, MW.CHUNK))
-    flen = rng.integers(-1, lvl + 1, (n, MW.CHUNK))
-    hh = rng.integers(0, 2, (n, MW.CHUNK))
-    tiles[:, lvl] = flen
-    tiles[:, lvl + 1] = np.maximum(flen - hh, 0)
-    tiles[:, lvl + 2] = hh | (rng.integers(0, 2, (n, MW.CHUNK)) << 1)
-    return tiles
-
-
-def _random_inputs(rng: np.random.Generator, b: int, nc: int, nlvl: int,
-                   nchunks: int, hi_tok: int, dev):
-    put = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)  # noqa: E731
-    tlen = rng.integers(1, nlvl + 2, b)
-    tlen[rng.random(b) < 0.1] = -2  # padded topics
-    return (put(rng.integers(0, hi_tok, (b, nlvl))), put(tlen),
-            put(rng.random(b) < 0.3),  # $-topics
-            put(rng.integers(0, nchunks, (b, nc))))  # includes chunk 0
-
-
-def _compare(name: str, kernel, plain, args, stats: dict) -> None:
-    got = kernel(*args)
-    want = plain(*args)
+def _compare(name: str, kernel, plain, args, stats: dict, bad=None) -> None:
+    """Kernel words against the plain twin's. ``bad``: a ``[B, NC]`` mask of
+    out-of-range ids, whose words must be zero; ``args`` is then a pair
+    (the kernel's arguments, the twin's), the twin's ids with the bad ones
+    set to 0, since the twin indexes the tiles with them."""
+    kargs, pargs = args if bad is not None else (args, args)
+    got = kernel(*kargs)
+    want = plain(*pargs)
+    if bad is not None:
+        badw = torch.from_numpy(np.repeat(bad, MW.WORDS_PER_CHUNK, axis=1)).to(got.device)
+        want = torch.where(badw, torch.zeros_like(want), want)
     torch.cuda.synchronize()
     err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) \
         if got.numel() else 0
@@ -206,7 +204,46 @@ def _compare(name: str, kernel, plain, args, stats: dict) -> None:
         raise AssertionError(f"{name}: kernel words differ from the plain twin "
                              f"(max abs err {err})")
     log(f"    {name}: equal, {int((got != 0).sum())} nonzero words of "
-        f"{got.numel()}")
+        f"{got.numel()}" + (f", {int(bad.sum())} out-of-range slots zero"
+                            if bad is not None else ""))
+
+
+def _kernel_pair(layout):
+    if layout is not None:
+        return (lambda *a: MW.match_words_packed(*a, layout=layout),
+                lambda *a: MW.match_words_packed_plain(*a, layout=layout))
+    return MW.match_words_legacy, MW.match_words_legacy_plain
+
+
+def _time_real(name: str, matcher, real, kern, plain, nlvl: int, s: dict,
+               dev) -> None:
+    """Times on the real table at cfg3's shapes: the kernel, its twin, the
+    bounds; the kernel at the NC split's bucket shapes for this batch (what
+    one router batch launches) and with the real ids folded onto
+    ``SMALL_SET`` tiles (the same integer work, with tile reads that the
+    L1 caches serve)."""
+    tiles, ttok, tlen, tdollar, cids = real
+    s["ms"] = time_cuda(lambda: kern(*real), reps=50)
+    s["graph_ms"] = time_graph(lambda: kern(*real), reps=10)
+    s["plain_ms"] = time_cuda(lambda: plain(*real), reps=3, warmup=1)
+    s["bound_ms"], s["bound_by"], s["bound_int_ms"] = words_bound_ms(tiles, ttok, cids, nlvl)
+    b = cids.shape[0]
+    np_in = [a.cpu().numpy() for a in (ttok, tlen, tdollar, cids)]
+    split = matcher._split_plan(np_in[3], b)
+    buckets = [] if split is None else split_buckets(*np_in, split)
+    s["bucket_ms"] = []
+    for arrs, (nb, pb, tier) in buckets:
+        args = (tiles, *(_put(a, dev) for a in arrs))
+        _compare(f"{name} bucket {nb} topics (B={pb}) NC={tier}", kern, plain, args, s)
+        s["bucket_ms"].append((pb, tier, time_graph(lambda: kern(*args), reps=10)))
+    small = torch.where(cids != 0, cids % SMALL_SET + 1, cids).contiguous()
+    s["small_set_ms"] = time_cuda(lambda: kern(tiles, ttok, tlen, tdollar, small),
+                                  reps=50)
+    log(f"    {name}: {s['ms']:.4f} ms at B={b} NC={cids.shape[1]} ({s['graph_ms']:.4f} "
+        f"ms by graph replay); NC-split "
+        f"buckets by graph replay {[(pb, tier, round(ms, 4)) for pb, tier, ms in s['bucket_ms']]} "
+        f"sum {sum(ms for *_, ms in s['bucket_ms']):.4f} ms per batch; real ids "
+        f"folded onto {SMALL_SET} tiles {s['small_set_ms']:.4f} ms")
 
 
 def phase_kernels(packed_router: TorchRouter, legacy_router: TorchRouter,
@@ -215,7 +252,6 @@ def phase_kernels(packed_router: TorchRouter, legacy_router: TorchRouter,
     real table."""
     log("[3] kernels against their plain twins")
     rng = np.random.default_rng(3)
-    put = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)  # noqa: E731
     stats = {"match_words_packed": {}, "match_words_legacy": {}}
 
     # --- packed, real cfg3 table
@@ -225,59 +261,69 @@ def phase_kernels(packed_router: TorchRouter, legacy_router: TorchRouter,
     ttok, tlen, tdollar, cids, nc = t.encode_topics(topics[:batch], pad_batch_to=batch)
     lay, tt = t.translate_packed(ttok)
     assert lay == st.layout, (lay, st.layout)
-    real_p = (st.tiles, put(tt), put(tlen), put(tdollar), put(cids))
+    real_p = (st.tiles, *(_put(a, dev) for a in (tt, tlen, tdollar, cids)))
     log(f"    real packed table: tiles {tuple(st.tiles.shape)} layout "
-        f"{lay.widths}, B={batch} NC={nc}")
+        f"{lay.widths}, B={batch} NC={nc}, {int((cids != 0).sum())} real slots")
     sp = stats["match_words_packed"]
-    kern_p = lambda *a: MW.match_words_packed(*a, layout=lay)  # noqa: E731
-    plain_p = lambda *a: MW.match_words_packed_plain(*a, layout=lay)  # noqa: E731
+    kern_p, plain_p = _kernel_pair(lay)
     _compare("packed real B=%d NC=%d" % (batch, nc), kern_p, plain_p, real_p, sp)
-    sp["ms"] = time_cuda(lambda: kern_p(*real_p), reps=50)
-    sp["plain_ms"] = time_cuda(lambda: plain_p(*real_p), reps=3, warmup=1)
-    sp["bound_ms"], sp["bound_by"] = words_bound_ms(st.tiles, real_p[1], real_p[4], lay.nlvl)
-    # packed, random tiles incl. a 2-byte level; edge shapes
-    for widths, b, nck in (((1, 1, 1, 1, 1, 2), batch, nc), ((2, 1, 2), 1023, 1),
-                           ((1,), 7, 5), ((1, 2, 1, 1, 1, 1, 1, 1), 4097, 3)):
-        layr = PackedLayout(widths)
-        tiles = torch.from_numpy(_random_packed(rng, layr, 512)).to(dev)
-        args = (tiles, *_random_inputs(rng, b, nck, layr.nlvl, 512, 8, dev))
-        _compare(f"packed random widths={widths} B={b} NC={nck}",
-                 lambda *a: MW.match_words_packed(*a, layout=layr),
-                 lambda *a: MW.match_words_packed_plain(*a, layout=layr), args, sp)
     # a 2-byte level on the real table: topics whose level-5 tokens use
     # the high byte (local ids >= 256)
     hi = tt.copy()
     hi[:, -1] = rng.integers(256, 400, len(hi))
     _compare("packed real, 2-byte level ids",
-             kern_p, plain_p, (st.tiles, put(hi), *real_p[2:]), sp)
+             kern_p, plain_p, (st.tiles, _put(hi, dev), *real_p[2:]), sp)
+    _time_real("packed real", pm, real_p, kern_p, plain_p, lay.nlvl, sp, dev)
+    # packed, random tiles incl. a 2-byte level; edge shapes
+    for widths, b, nck in (((1, 1, 1, 1, 1, 2), batch, nc), ((2, 1, 2), 1023, 1),
+                           ((1,), 7, 5), ((1, 2, 1, 1, 1, 1, 1, 1), 4097, 3)):
+        layr = PackedLayout(widths)
+        tiles = torch.from_numpy(random_packed_tiles(rng, layr, 512)).to(dev)
+        tops = random_topics(rng, b, layr.nlvl)
+        args = (tiles, *(_put(a, dev) for a in tops),
+                _put(rng.integers(0, 512, (b, nck)), dev))  # includes chunk 0
+        _compare(f"packed random widths={widths} B={b} NC={nck}",
+                 *_kernel_pair(layr), args, sp)
 
     # --- legacy, real cfg3 table (int16) and as int32
     lm = legacy_router.matcher
     lst = lm._refresh()
     lt = legacy_router.table
     ltok, ltlen, ltd, lcids, lnc = lt.encode_topics(topics[:batch], pad_batch_to=batch)
-    real_l = (lst.tiles, put(ltok), put(ltlen), put(ltd), put(lcids))
+    real_l = (lst.tiles, *(_put(a, dev) for a in (ltok, ltlen, ltd, lcids)))
     log(f"    real legacy table: tiles {tuple(lst.tiles.shape)} {lst.tiles.dtype}")
     sl = stats["match_words_legacy"]
-    _compare(f"legacy real {lst.tiles.dtype} B={batch} NC={lnc}",
-             MW.match_words_legacy, MW.match_words_legacy_plain, real_l, sl)
-    _compare("legacy real as int32", MW.match_words_legacy,
-             MW.match_words_legacy_plain,
+    kern_l, plain_l = _kernel_pair(None)
+    _compare(f"legacy real {lst.tiles.dtype} B={batch} NC={lnc}", kern_l, plain_l,
+             real_l, sl)
+    _compare("legacy real as int32", kern_l, plain_l,
              (lst.tiles.to(torch.int32).contiguous(), *real_l[1:]), sl)
-    sl["ms"] = time_cuda(lambda: MW.match_words_legacy(*real_l), reps=50)
-    sl["plain_ms"] = time_cuda(lambda: MW.match_words_legacy_plain(*real_l), reps=3,
-                               warmup=1)
-    sl["bound_ms"], sl["bound_by"] = words_bound_ms(lst.tiles, real_l[1], real_l[4],
-                                                    lst.tiles.shape[1] - 3)
+    _time_real("legacy real", lm, real_l, kern_l, plain_l, lst.tiles.shape[1] - 3,
+               sl, dev)
     for dtype, b, nck in ((np.int16, batch, nc), (np.int32, batch, nc),
                           (np.int16, 1023, 1), (np.int32, 9, 4)):
-        tiles = torch.from_numpy(_random_legacy(rng, 8, 512, dtype)).to(dev)
-        args = (tiles, *_random_inputs(rng, b, nck, 8, 512, 8, dev))
+        tiles = torch.from_numpy(random_legacy_tiles(rng, 8, 512, dtype)).to(dev)
+        args = (tiles, *(_put(a, dev) for a in random_topics(rng, b, 8)),
+                _put(rng.integers(0, 512, (b, nck)), dev))
         _compare(f"legacy random {np.dtype(dtype).name} B={b} NC={nck}",
-                 MW.match_words_legacy, MW.match_words_legacy_plain, args, sl)
+                 kern_l, plain_l, args, sl)
+
+    # --- edge cases: chunk 0 front / mid / repeated, repeated ids, NC > 32,
+    # tiny B, out-of-range ids, every packed group count and legacy L range
+    for case in EDGE_CASES:
+        tiles, ttok_, tlen_, td_, ids, layc, bad, pids = make_case(case)
+        tiles = torch.from_numpy(tiles).to(dev)
+        tops = [_put(a, dev) for a in (ttok_, tlen_, td_)]
+        args = (tiles, *tops, _put(ids, dev))
+        if bad is not None:
+            args = (args, (tiles, *tops, _put(pids, dev)))
+        s = stats["match_words_packed" if layc is not None else "match_words_legacy"]
+        _compare(case.name, *_kernel_pair(layc), args, s, bad)
     for name, s in stats.items():
         log(f"    {name}: {s['ms']:.4f} ms (plain {s['plain_ms']:.3f} ms, bound "
-            f"{s['bound_ms']:.4f} ms by {s['bound_by']}) over {s['cases']} equal cases")
+            f"{s['bound_ms']:.4f} ms by {s['bound_by']} with operations at the "
+            f"FP32 rate, {s['bound_int_ms']:.4f} ms at the integer rate) over "
+            f"{s['cases']} equal cases")
     return stats
 
 
@@ -497,8 +543,9 @@ def phase_profile(router: TorchRouter, topics, batch: int) -> None:
     log(f"    wall {wall * 1e3:.3f} ms, device busy {share * 100:.2f}% (idle "
         f"{100 - share * 100:.2f}%)" if prof_rows
         else "    no device time recorded (not measured)")
-    for name, ms, cnt in prof_rows[:10]:
-        log(f"      {ms:9.3f} ms  x{cnt:<5d} {name[:90]}")
+    for i, (name, ms, cnt) in enumerate(prof_rows):
+        if i < 10 or "match_words" in name:
+            log(f"      {ms:9.3f} ms  x{cnt:<5d} {name[:90]}")
 
 
 def main(argv=None) -> int:
@@ -567,6 +614,8 @@ def main(argv=None) -> int:
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": None,
             "equal_to_plain": True, "cases": s["cases"],
+            "bound_int_ms": s["bound_int_ms"], "small_set_ms": s["small_set_ms"],
+            "bucket_ms_per_batch": sum(ms for *_, ms in s["bucket_ms"]),
         })
     log(f"[7] kernels (total run {time.perf_counter() - t_start:.1f}s)")
     print(json.dumps({"kernels": kernels}), flush=True)

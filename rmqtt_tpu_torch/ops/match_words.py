@@ -140,6 +140,9 @@ def _check_cuda(name: str, tiles, tile_dtypes, ttok, tlen, tdollar,
             f"tdollar {tuple(tdollar.shape)} do not fit chunk_ids {(b, nc)}")
     if tiles.shape[0] >= 1 << 31:
         raise ValueError(f"{name}: {tiles.shape[0]} tiles exceed the int32 index")
+    if tiles.data_ptr() % 16:
+        raise ValueError(f"{name}: tiles must start on a 16-byte boundary "
+                         f"(the kernel reads four rows per 16-byte load)")
 
 
 def _raise_on(err: int, name: str) -> None:

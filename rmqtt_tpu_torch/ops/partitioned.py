@@ -1088,6 +1088,35 @@ def match_fused_split(tiles, fid_rows, parts, budgets, layout=None,
     return torch.cat([o.wire for o in outs]), outs
 
 
+def split_buckets(tt, tlen, tdollar, chunk_ids, split):
+    """The NC split's buckets on the host, from a ``_split_plan`` result:
+    for each non-empty tier, its topics' ``(ttok, tlen, tdollar,
+    chunk_ids[:, :tier])`` padded to a power of two (padded topics have
+    tlen -2 and match nothing) → ``[(arrays, (topics, padded, tier))]``."""
+    order, sizes, tiers = split
+    out = []
+    pos = 0
+    for tier, s in zip(tiers, sizes):
+        s = int(s)
+        if not s:
+            continue
+        idx = order[pos : pos + s]
+        pos += s
+        pb = 1 << (s - 1).bit_length() if s > 1 else 1
+        pt = np.zeros((pb, tt.shape[1]), dtype=tt.dtype)
+        pt[:s] = tt[idx]
+        pl = np.full((pb,), -2, dtype=tlen.dtype)
+        pl[:s] = tlen[idx]
+        pd = np.zeros((pb,), dtype=bool)
+        pd[:s] = tdollar[idx]
+        # candidate lists are stored front-packed, so a count ≤ tier
+        # topic's chunks all live in the first `tier` columns
+        pc = np.zeros((pb, tier), dtype=chunk_ids.dtype)
+        pc[:s] = chunk_ids[idx, :tier]
+        out.append(((pt, pl, pd, pc), (s, pb, tier)))
+    return out
+
+
 def pack_device_rows(t: PartitionedTable) -> np.ndarray:
     """The device mirror of a table: chunk-tiled ``[up_chunks, L+3, CHUNK]``
     FIELD-MAJOR rows (tokens + flen + prefix_len + hash|wild flags), active
@@ -1591,35 +1620,19 @@ class PartitionedMatcher:
                             chunk_ids, split):
         """Fused NC split-dispatch: topics bucketed host-side by candidate
         count, one fused pass per bucket, one fetch for the batch."""
-        order, sizes, tiers = split
-        b = len(order)
+        order = split[0]
         parts: List[Tuple] = []
         meta: List[Tuple[int, int, int]] = []  # (nb, padded_b, tier)
         budgets: List[int] = []
-        pos = 0
-        for tier, s in zip(tiers, sizes):
-            s = int(s)
-            if not s:
-                continue
-            idx = order[pos : pos + s]
-            pos += s
-            pb = 1 << (s - 1).bit_length() if s > 1 else 1
-            pt = np.zeros((pb, tt.shape[1]), dtype=tt.dtype)
-            pt[:s] = tt[idx]
-            pl = np.full((pb,), -2, dtype=tlen.dtype)
-            pl[:s] = tlen[idx]
-            pd = np.zeros((pb,), dtype=bool)
-            pd[:s] = tdollar[idx]
-            # candidate lists are stored front-packed, so a count ≤ tier
-            # topic's chunks all live in the first `tier` columns
-            pc = np.zeros((pb, tier), dtype=chunk_ids.dtype)
-            pc[:s] = chunk_ids[idx, :tier]
-            parts.append(tuple(self._put(a) for a in (pt, pl, pd, pc)))
+        for arrs, (s, pb, tier) in split_buckets(tt, tlen, tdollar, chunk_ids,
+                                                 split):
+            parts.append(tuple(self._put(a) for a in arrs))
             meta.append((s, pb, tier))
             budgets.append(self._budget_for(pb, tier))
         wire, outs = match_fused_split(st.tiles, st.fids, parts, budgets,
                                        st.layout, self.use_kernel)
-        return ("fs", b, order, meta, outs, wire, tuple(budgets), st.fids)
+        return ("fs", len(order), order, meta, outs, wire, tuple(budgets),
+                st.fids)
 
     def _regrow(self, n: int, key: Tuple[int, int]) -> int:
         """Sticky pow2 budget regrow for a batch shape whose routes

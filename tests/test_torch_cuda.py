@@ -14,6 +14,7 @@ import torch
 
 import rmqtt_tpu_torch.ops.match_words as MW
 import rmqtt_tpu_torch.ops.partitioned as TP
+from rmqtt_tpu_torch.bench.words_cases import EDGE_CASES, make_case
 from rmqtt_tpu_torch.bench.workloads import gen_mixed, gen_topics_uniform
 from rmqtt_tpu_torch.router import Id, SubscriptionOptions, TorchRouter
 
@@ -80,6 +81,29 @@ def test_kernel_equals_plain_on_cuda(cuda, fmt):
     torch.cuda.synchronize()
     assert torch.equal(got, want) and bool((want != 0).any())
     assert MW.match_words_packed.launches + MW.match_words_legacy.launches == n0 + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", EDGE_CASES, ids=[c.name for c in EDGE_CASES])
+def test_kernel_edge_cases_on_cuda(cuda, case):
+    """NC above 32, B of 1 and 3, chunk 0 at the front / in the middle /
+    repeated, a repeated nonzero id, every packed group count and legacy L
+    range: equal to the twin. Out-of-range ids give zero words."""
+    tiles, ttok, tlen, tdollar, ids, lay, bad, plain_ids = make_case(case)
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
+    args = [put(a) for a in (tiles, ttok, tlen, tdollar)]
+    if lay is not None:
+        got = MW.match_words_packed(*args, put(ids), layout=lay)
+        want = MW.match_words_packed_plain(*args, put(plain_ids), layout=lay)
+    else:
+        got = MW.match_words_legacy(*args, put(ids))
+        want = MW.match_words_legacy_plain(*args, put(plain_ids))
+    if bad is not None:
+        badw = put(np.repeat(bad, MW.WORDS_PER_CHUNK, axis=1))
+        assert not bool(got[badw].any())
+        want = torch.where(badw, torch.zeros_like(want), want)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and bool((want != 0).any())
 
 
 @pytest.mark.cuda

@@ -13,6 +13,7 @@ import torch
 import rmqtt_tpu.ops.partitioned as JP
 import rmqtt_tpu_torch.ops.match_words as MW
 from rmqtt_tpu.ops.pallas_match import match_words_pallas, match_words_pallas_packed
+from rmqtt_tpu_torch.bench.words_cases import edge_chunk_ids
 from rmqtt_tpu_torch.ops.encode import PackedLayout
 
 FORMATS = ["packed", "legacy_int16", "legacy_int32"]
@@ -123,6 +124,25 @@ def test_plain_random_tiles_equal_jax():
         JP.scan_words_packed_impl, layout=lay))(tiles, ttok, tlen, tdollar, cids))
     got = _port_plain(tiles, ttok, tlen, tdollar, cids, lay)
     assert np.array_equal(got, want) and want.any()
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_plain_equals_jax_scan_edge_ids(fmt):
+    """The candidate lists the CUDA kernels treat apart: NC = 64 (two warps
+    per topic), chunk 0 at the front, mid-row and repeated, a nonzero id
+    repeated in one row."""
+    tiles, ttok, tlen, tdollar, _cids, lay = _inputs(fmt, seed=2)
+    cids = edge_chunk_ids(np.random.default_rng(7), len(ttok), 64, len(tiles))
+    assert (cids[:, 32] == 0).any() and (cids[:, 0] == 0).any()
+    if lay is not None:
+        want = jax.jit(functools.partial(JP.scan_words_packed_impl, layout=lay))(
+            tiles, ttok, tlen, tdollar, cids)
+    else:
+        want = jax.jit(JP.scan_words_impl)(tiles, ttok, tlen, tdollar, cids)
+    want = np.asarray(want)
+    got = _port_plain(tiles, ttok, tlen, tdollar, cids, lay)
+    assert got.shape == want.shape == (40, 256) and np.array_equal(got, want)
+    assert want.any(), "vacuous: no row matched"
 
 
 def test_cpu_tensors_do_not_count_launches():
