@@ -28,10 +28,24 @@ Phases, each of which fails the run (nonzero exit, no result line):
    adds (delta uploads), then the sample again;
 5. the same topics through a ``TorchRouter`` on legacy tiles
    (``RMQTT_PACKED=0``), equal to phase 4's results;
-6. one pipelined packed-tile pass under ``torch.profiler``: the device's
+6. the broker: ``python -m rmqtt_tpu_torch.broker --router xla`` as a child
+   process with ``RMQTT_HYBRID_MAX=0`` (every batch on the device), driven
+   over TCP by the load client of ``bench/mqtt_load.py``. 6a: 64 subscriber
+   connections subscribe the 1M filters (dealt round-robin, SUBSCRIBE
+   packets of 1,000), 4 publishers publish the 32,768 topics at QoS 0 with
+   unique payloads; what the subscribers receive must equal, as a multiset
+   of (client, topic, payload), what the port's ``DefaultRouter`` resolves
+   for the same subscriptions, and ``/api/v1/stats`` must show every batch
+   on the device. 6b: ``device.dispatch`` armed with ``times(4,error)``
+   over ``PUT /api/v1/failpoints``, a wave of 1,000 topics: deliveries still
+   equal the oracle, the breaker opens, then closes with a full re-upload,
+   and the next wave is served by the device. 6c: the round trip of 200
+   lone publishes, on this broker and on a second one started with the
+   default hybrid (both hold the same 1M subscriptions);
+7. one pipelined packed-tile pass under ``torch.profiler``: the device's
    busy share and its time by kernel;
-7. the kernel summary line (launches on the router paths, equality with
-   the plain twins, times beside the bound).
+8. the kernel summary line (launches on the router paths and in the
+   broker, equality with the plain twins, times beside the bound).
 
 The tables and the ``TopicTree`` oracle are built before phase 3, and the
 garbage collector is then frozen, as ``bench.py`` does for the same tables.
@@ -42,17 +56,26 @@ the options (for a quick look); the defaults are cfg3's.
 from __future__ import annotations
 
 import argparse
+import asyncio
 import gc
 import json
 import os
 import random
+import signal
+import socket
 import subprocess
 import sys
+import tempfile
 import time
+import urllib.request
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from rmqtt_tpu_torch.bench.mqtt_load import (LoadClient, connect_and_subscribe,
+                                             expected_deliveries, oracle_router,
+                                             publish_wave)
 from rmqtt_tpu_torch.bench.words_cases import (EDGE_CASES, make_case,
                                                random_legacy_tiles,
                                                random_packed_tiles, random_topics)
@@ -156,15 +179,19 @@ def words_bound_ms(tiles, ttok, chunk_ids, nlvl: int):
 
 
 # ------------------------------------------------------------ phase 1, 2
-def phase_device() -> dict:
-    name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
+
+
+def phase_device() -> dict:
+    name = torch.cuda.get_device_name(0)
     log(f"[1] device: {name}, {torch.cuda.device_count()} visible; torch "
         f"{torch.__version__} cuda {torch.version.cuda}")
-    log(smi)
+    log(card_line())
     return {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}
 
 
@@ -329,15 +356,18 @@ def phase_kernels(packed_router: TorchRouter, legacy_router: TorchRouter,
 
 # ------------------------------------------------------------- phase 4, 5
 def build_router(filters, device, packed: bool) -> TorchRouter:
-    old = os.environ.get("RMQTT_PACKED")
-    os.environ["RMQTT_PACKED"] = "1" if packed else "0"
+    """A router with every batch on the device (``RMQTT_HYBRID_MAX=0``)."""
+    env = {"RMQTT_PACKED": "1" if packed else "0", "RMQTT_HYBRID_MAX": "0"}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
     try:
         router = TorchRouter(device=device)
     finally:
-        if old is None:
-            del os.environ["RMQTT_PACKED"]
-        else:
-            os.environ["RMQTT_PACKED"] = old
+        for k, v in old.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
     opts = SubscriptionOptions()
     t0 = time.perf_counter()
     for i, f in enumerate(filters):
@@ -535,10 +565,324 @@ def phase_legacy(router: TorchRouter, topics, batch: int, want_filters) -> None:
         f"in both passes")
 
 
+# ---------------------------------------------------------------- phase 6
+ROOT = Path(__file__).resolve().parent
+BROKER_CMD = (sys.executable, "-m", "rmqtt_tpu_torch.broker")
+BROKER_SUBSCRIBERS = 64  # 6a: connections the filters are dealt over
+BROKER_PUBLISHERS = 4
+FAULT_WAVE = 1000  # 6b: topics per wave
+LONE_PUBLISHES = 200  # 6c: round trips per broker
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class BrokerProcess:
+    """``python -m rmqtt_tpu_torch.broker --router xla`` as a child process
+    with ``[http_api]`` on a port of its own; its output goes to a log file
+    in ``workdir``. ``stop`` ends it (``main``'s ``finally``)."""
+
+    def __init__(self, name: str, workdir: Path, env: dict) -> None:
+        self.name = name
+        self.port, self.http_port = _free_port(), _free_port()
+        cfg = workdir / f"{name}.toml"
+        cfg.write_text(
+            '[listener]\nhost = "127.0.0.1"\n'
+            f'[http_api]\nhost = "127.0.0.1"\nport = {self.http_port}\n'
+            # no queue-full drops: every delivery is checked
+            "[mqtt]\nmax_mqueue = 100000000\n")
+        self.log_path = workdir / f"{name}.log"
+        self._log = open(self.log_path, "wb")
+        full_env = {**os.environ, **env, "PYTHONFAULTHANDLER": "1",
+                    "PYTHONPATH": os.pathsep.join(
+                        p for p in (str(ROOT), os.environ.get("PYTHONPATH")) if p)}
+        self.proc = subprocess.Popen(
+            [*BROKER_CMD, "--router", "xla", "--port", str(self.port), "--config", str(cfg)],
+            stdout=self._log, stderr=subprocess.STDOUT, env=full_env, cwd=ROOT)
+
+    def tail(self, n: int = 40) -> str:
+        return "\n".join(self.log_path.read_text(errors="replace").splitlines()[-n:])
+
+    def wait_ready(self, timeout: float = 300.0) -> None:
+        deadline = time.perf_counter() + timeout
+        while time.perf_counter() < deadline:
+            if self.proc.poll() is not None:
+                raise RuntimeError(f"broker {self.name} exited "
+                                   f"({self.proc.returncode}):\n{self.tail()}")
+            try:
+                with socket.create_connection(("127.0.0.1", self.port), timeout=1):
+                    pass
+                with socket.create_connection(("127.0.0.1", self.http_port), timeout=1):
+                    return
+            except OSError:
+                time.sleep(0.2)
+        raise TimeoutError(f"broker {self.name} not listening after {timeout}s:\n"
+                           f"{self.tail()}")
+
+    def abort_with_stacks(self) -> None:
+        """On a failed phase: SIGABRT makes the broker's fault handler
+        write every thread's stack to its log before it dies."""
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGABRT)
+            try:
+                self.proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                pass
+
+    def _http(self, method: str, path: str, body=None):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{self.http_port}{path}", method=method,
+            data=None if body is None else json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return json.loads(resp.read())
+
+    def stats(self) -> dict:
+        """The broker's ``/api/v1/stats`` gauges."""
+        (node,) = self._http("GET", "/api/v1/stats")
+        return node["stats"]
+
+    def set_failpoints(self, specs: dict) -> None:
+        self._http("PUT", "/api/v1/failpoints", specs)
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=30)
+        self._log.close()
+
+
+def _device_delta(before: dict, after: dict) -> dict:
+    keys = ("routing_dispatches", "routing_fused_batches", "routing_failovers",
+            "routing_switchbacks", "routing_failover_host_routed",
+            "routing_uploads", "routing_delta_uploads",
+            "routing_kernel_launches_packed", "routing_kernel_launches_legacy")
+    return {k: after[k] - before[k] for k in keys}
+
+
+def _log_split(before: dict, after: dict, secs: float) -> None:
+    """Where a wave's time went, from the broker's own gauges: the
+    matcher's stage totals (host clocks; fetch includes the wait for the
+    device), the collector's pauses, and the routing and publish latency
+    percentiles (histograms since the broker started)."""
+    def dlt(k):
+        return after.get(k, 0) - before.get(k, 0)
+
+    n = max(1, dlt("routing_dispatches"))
+    stages = {k: dlt(f"routing_stage_{k}_ms_total")
+              for k in ("encode", "dispatch", "fetch", "decode")}
+    log(f"    split over {n} batches ({dlt('routing_dispatched_items')} items, "
+        f"{secs * 1e3 / n:.3f} ms of wave per batch): matcher stages "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items())
+        + f" ({sum(stages.values()) / n:.3f} ms per batch); collector "
+        f"{dlt('host_gc_pauses')} pauses, {dlt('host_gc_pause_ms_total'):.3f} ms; "
+        f"routing match p50/p99 {after['routing_match_p50_ms']}/"
+        f"{after['routing_match_p99_ms']} ms, queue wait p50/p99 "
+        f"{after['routing_queue_wait_p50_ms']}/{after['routing_queue_wait_p99_ms']} ms, "
+        f"publish e2e p50/p99 {after['publish_e2e_p50_ms']}/"
+        f"{after['publish_e2e_p99_ms']} ms; event-loop lag p99 "
+        f"{after.get('host_loop_lag_p99_ms', 0)} ms")
+
+
+def _all_on_device(d: dict, after: dict) -> bool:
+    """Every routing batch of a wave ran on the device: as many device
+    batches as dispatches or more (the start-up prewarm also matches), no
+    item routed on the host trie, no failover, the breaker closed."""
+    return (d["routing_fused_batches"] >= d["routing_dispatches"] > 0
+            and d["routing_failover_host_routed"] == 0
+            and d["routing_failovers"] == 0 and after["routing_failover_state"] == 0)
+
+
+def _check_wave(what: str, got, want) -> None:
+    if got != want:
+        missing, extra = want - got, got - want
+        raise AssertionError(
+            f"{what}: deliveries differ from the DefaultRouter oracle: "
+            f"{sum(missing.values())} missing (e.g. {list(missing)[:3]}), "
+            f"{sum(extra.values())} extra (e.g. {list(extra)[:3]})")
+    log(f"    {what}: {sum(got.values())} deliveries equal to the DefaultRouter "
+        f"oracle (multiset of client, topic, payload)")
+
+
+async def _lone_publishes(port: int, n: int, tag: str) -> tuple:
+    """``n`` lone QoS 0 publishes, each waiting for its delivery, from one
+    publisher to one subscriber on ``lat/+`` → (p50 ms, p99 ms)."""
+    sub = await LoadClient.connect(port, f"lat-sub-{tag}")
+    await sub.subscribe(["lat/+"])
+    pub = await LoadClient.connect(port, f"lat-pub-{tag}")
+    rtt = []
+    for i in range(n):
+        t0 = time.perf_counter()
+        pub.publish(f"lat/{i}", b"%d" % i)
+        await sub.wait_count(i + 1, 30.0)
+        topic, payload, t1 = sub.received[i]
+        if (topic, payload) != (f"lat/{i}", b"%d" % i):
+            raise AssertionError(f"lone publish {i}: got {topic!r} {payload!r}")
+        rtt.append((t1 - t0) * 1e3)
+    await sub.close()
+    await pub.close()
+    return float(np.percentile(rtt, 50)), float(np.percentile(rtt, 99))
+
+
+async def _broker_drive(dev_broker, hybrid_broker, subs, waves) -> dict:
+    """6a, 6b and 6c against the two running brokers → the numbers."""
+    out: dict = {}
+    n_filters = sum(len(f) for f in subs.values())
+    # one broker at a time, so each subscribe time is that broker's alone
+    t0 = time.perf_counter()
+    subscribers = await connect_and_subscribe(dev_broker.port, subs)
+    out["subscribe_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hybrid_subscribers = await connect_and_subscribe(hybrid_broker.port, subs)
+    out["subscribe_s_hybrid_broker"] = time.perf_counter() - t0
+    log(f"    subscribe: {n_filters} filters over {len(subs)} connections in "
+        f"{out['subscribe_s']:.3f} s (device broker), then "
+        f"{out['subscribe_s_hybrid_broker']:.3f} s (hybrid broker)")
+    loop = asyncio.get_running_loop()
+
+    async def stats():
+        return await loop.run_in_executor(None, dev_broker.stats)
+
+    pubs = [await LoadClient.connect(dev_broker.port, f"pub{k}")
+            for k in range(BROKER_PUBLISHERS)]
+
+    # 6a: the cfg3 topics through the broker, every batch on the device
+    (topics, payloads, want), wave_fail, wave_next = waves
+    s0 = await stats()
+    got, secs = await publish_wave(pubs, subscribers, topics, payloads, want,
+                                   timeout=900.0)
+    s1 = await stats()
+    _check_wave("6a cfg3 wave", got, want)
+    d = _device_delta(s0, s1)
+    n_del = sum(got.values())
+    out.update(publishes=len(topics), deliveries=n_del, publish_s=secs,
+               deliveries_per_s=n_del / secs, publishes_per_s=len(topics) / secs,
+               launches_packed=d["routing_kernel_launches_packed"],
+               launches_legacy=d["routing_kernel_launches_legacy"],
+               dispatches=d["routing_dispatches"], fused_batches=d["routing_fused_batches"])
+    log(f"    6a: {len(topics)} publishes -> {n_del} deliveries, first publish to "
+        f"last delivery {secs:.3f} s = {n_del / secs:.1f} messages/s delivered "
+        f"({len(topics) / secs:.1f} publishes/s); {d['routing_dispatches']} "
+        f"routing batches, {d['routing_fused_batches']} on the device, words kernel "
+        f"launches {d['routing_kernel_launches_packed']} (packed)")
+    _log_split(s0, s1, secs)
+    if not _all_on_device(d, s1) or d["routing_kernel_launches_packed"] <= 0:
+        raise AssertionError(f"6a: not every batch ran on the device: {d}, "
+                             f"failover state {s1['routing_failover_state']}")
+
+    # 6b: device.dispatch fails 4 times; no delivery lost, the breaker opens,
+    # closes with a full re-upload, and the device serves the next wave
+    (ftopics, fpayloads, fwant) = wave_fail
+    await loop.run_in_executor(None, dev_broker.set_failpoints,
+                               {"device.dispatch": "times(4,error)"})
+    got, _ = await publish_wave(pubs, subscribers, ftopics, fpayloads, fwant,
+                                timeout=300.0)
+    s2 = await stats()
+    _check_wave("6b wave with device.dispatch armed", got, fwant)
+    d = _device_delta(s1, s2)
+    if d["routing_failovers"] < 1:
+        raise AssertionError(f"6b: the breaker never opened: {d}")
+    t0 = time.perf_counter()
+    while True:
+        s3 = await stats()
+        if s3["routing_failover_state"] == 0 and s3["routing_switchbacks"] > s1["routing_switchbacks"]:
+            break
+        if time.perf_counter() - t0 > 120:
+            raise AssertionError(f"6b: the breaker did not close in 120 s: "
+                                 f"state {s3['routing_failover_state']}")
+        await asyncio.sleep(0.2)
+    close_s = time.perf_counter() - t0
+    d = _device_delta(s1, s3)
+    full = d["routing_uploads"] - d["routing_delta_uploads"]
+    if full < 1:
+        raise AssertionError(f"6b: no full re-upload on the switchback: {d}")
+    log(f"    6b: breaker opened ({d['routing_failovers']} failover, "
+        f"{s3['routing_failover_host_routed'] - s1['routing_failover_host_routed']} "
+        f"items routed on the host trie), closed {close_s:.3f} s after the wave "
+        f"with {full} full re-upload(s)")
+    (ntopics, npayloads, nwant) = wave_next
+    got, _ = await publish_wave(pubs, subscribers, ntopics, npayloads, nwant,
+                                timeout=300.0)
+    s4 = await stats()
+    _check_wave("6b next wave", got, nwant)
+    d = _device_delta(s3, s4)
+    if not _all_on_device(d, s4):
+        raise AssertionError(f"6b: the next wave was not served by the device: {d}")
+    log(f"    6b next wave: {d['routing_dispatches']} batches, all on the device")
+    out["launches_packed_6b"] = (s4["routing_kernel_launches_packed"]
+                                 - s1["routing_kernel_launches_packed"])
+    out["failover_close_s"] = close_s
+
+    # 6c: lone publishes, hybrid off (the device) and the default hybrid
+    out["lone_ms_device"] = await _lone_publishes(dev_broker.port, LONE_PUBLISHES, "dev")
+    out["lone_ms_hybrid"] = await _lone_publishes(hybrid_broker.port, LONE_PUBLISHES, "hyb")
+    log(f"    6c: lone publish round trip over {LONE_PUBLISHES} publishes: p50 / p99 "
+        f"{out['lone_ms_device'][0]:.3f} / {out['lone_ms_device'][1]:.3f} ms with "
+        f"RMQTT_HYBRID_MAX=0 (device), {out['lone_ms_hybrid'][0]:.3f} / "
+        f"{out['lone_ms_hybrid'][1]:.3f} ms with the default hybrid (host trie)")
+    for c in [*subscribers, *hybrid_subscribers, *pubs]:
+        await c.close()
+    return out
+
+
+def phase_broker(filters, topics, seed: int) -> dict:
+    """Phase 6 → its numbers (``launches_packed``: the words kernel's
+    launches in the broker process over 6a, from its stats before and
+    after the wave)."""
+    log("[6] the broker: python -m rmqtt_tpu_torch.broker --router xla")
+    t0 = time.perf_counter()
+    subs = {f"s{k}": filters[k::BROKER_SUBSCRIBERS] for k in range(BROKER_SUBSCRIBERS)}
+    oracle = oracle_router(subs)
+    rng = random.Random(seed + 2)
+    waves = []
+    for name, tops in (("cfg3", topics), ("fail", gen_topics_uniform(rng, FAULT_WAVE)),
+                       ("next", gen_topics_uniform(rng, FAULT_WAVE))):
+        payloads = [b"%s-%d" % (name.encode(), i) for i in range(len(tops))]
+        waves.append((tops, payloads, expected_deliveries(oracle, tops, payloads)))
+    del oracle
+    gc.collect()
+    gc.freeze()
+    log(f"    DefaultRouter oracle: {len(filters)} filters, expected deliveries "
+        f"{[sum(w[2].values()) for w in waves]} in {time.perf_counter() - t0:.2f}s")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_broker_") as tmp:
+        brokers = []
+        try:
+            # every batch on the device; and the default hybrid (64)
+            brokers.append(BrokerProcess("device", Path(tmp), {"RMQTT_HYBRID_MAX": "0"}))
+            brokers.append(BrokerProcess("hybrid", Path(tmp), {"RMQTT_HYBRID_MAX": "64"}))
+            t0 = time.perf_counter()
+            for b in brokers:
+                b.wait_ready()
+            log(f"    two brokers listening in {time.perf_counter() - t0:.2f}s "
+                f"(ports {[b.port for b in brokers]})")
+            out = asyncio.run(_broker_drive(*brokers, subs, waves))
+        except BaseException:
+            for b in brokers:
+                b.abort_with_stacks()
+                log(f"    --- broker {b.name} log (tail) ---\n{b.tail(120)}")
+            raise
+        finally:
+            for b in brokers:
+                b.stop()
+    log(f"    {card_line()}: subscribe {out['subscribe_s']:.3f} s, publish to last "
+        f"delivery {out['publish_s']:.3f} s ({out['deliveries_per_s']:.1f} messages/s), "
+        f"lone publish p50/p99 {out['lone_ms_device'][0]:.3f}/"
+        f"{out['lone_ms_device'][1]:.3f} ms (device) "
+        f"{out['lone_ms_hybrid'][0]:.3f}/{out['lone_ms_hybrid'][1]:.3f} ms (hybrid)")
+    return out
+
+
 def phase_profile(router: TorchRouter, topics, batch: int) -> None:
     """One pipelined pass through the packed-tile router under the profiler,
     after every timed pass (the profiler adds host overhead)."""
-    log("[6] device profile of one pipelined pass (packed tiles)")
+    log("[7] device profile of one pipelined pass (packed tiles)")
     share, wall, prof_rows = profile_device(lambda: route_all(router, topics, batch, 2))
     log(f"    wall {wall * 1e3:.3f} ms, device busy {share * 100:.2f}% (idle "
         f"{100 - share * 100:.2f}%)" if prof_rows
@@ -603,13 +947,27 @@ def main(argv=None) -> int:
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} was never launched on its router path")
+    del legacy_router, tree, want_filters  # the broker phase needs the room
+
+    # the broker runs in a child process: its launches are the difference
+    # of its own counters (/api/v1/stats) across 6a
+    broker = phase_broker(filters, topics, args.seed)
+    by_path = {
+        "match_words_packed": {"router, phase 4": launches["match_words_packed"],
+                               "broker, phase 6a": broker["launches_packed"]},
+        "match_words_legacy": {"router with RMQTT_PACKED=0, phase 5":
+                               launches["match_words_legacy"]},
+    }
+    if broker["launches_packed"] <= 0:
+        raise AssertionError("match_words_packed was never launched in the broker")
     phase_profile(packed_router, topics, args.batch)
 
     kernels = []
     for name, s in stats.items():
         kernels.append({
             "name": name, "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name], "launches": sum(by_path[name].values()),
+            "launches_by_path": by_path[name],
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": None,
@@ -617,7 +975,7 @@ def main(argv=None) -> int:
             "bound_int_ms": s["bound_int_ms"], "small_set_ms": s["small_set_ms"],
             "bucket_ms_per_batch": sum(ms for *_, ms in s["bucket_ms"]),
         })
-    log(f"[7] kernels (total run {time.perf_counter() - t_start:.1f}s)")
+    log(f"[8] kernels (total run {time.perf_counter() - t_start:.1f}s)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0

@@ -1,0 +1,888 @@
+"""Server context: the shared runtime bundle.
+
+Mirrors the reference ``ServerContext`` (`rmqtt/src/context.rs:290-341`):
+one object carrying the swappable subsystems (router, session registry,
+retain store, delayed sender, hook registry, ACL, fitter, metrics) that every
+connection handler receives — the extension-manager seam
+(`rmqtt/src/extend.rs:64-113`) where cluster/TPU implementations swap in.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import os
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional
+
+from rmqtt_tpu_torch.broker.acl import AclEngine
+from rmqtt_tpu_torch.broker.delayed import DelayedSender
+from rmqtt_tpu_torch.broker.fitter import Fitter, FitterConfig
+from rmqtt_tpu_torch.broker.hooks import HookRegistry
+from rmqtt_tpu_torch.broker.metrics import Metrics, Stats
+from rmqtt_tpu_torch.broker.retain import RetainStore
+from rmqtt_tpu_torch.broker.routing import RoutingService
+from rmqtt_tpu_torch.router.base import Router
+
+#: period of the shared store expire-sweep task (ServerContext.start):
+#: TTL'd rows are reaped for EVERY registered store — previously only the
+#: message-storage plugin's flush loop swept, and only its own store
+STORE_SWEEP_INTERVAL_S = 60.0
+
+
+@dataclass
+class BrokerConfig:
+    host: str = "127.0.0.1"
+    port: int = 1883
+    # additional listeners (None = disabled, 0 = ephemeral); the reference
+    # rmqtt-net supports TCP/TLS/WS/WSS (+QUIC, needs an external stack)
+    ws_port: Optional[int] = None
+    tls_port: Optional[int] = None
+    wss_port: Optional[int] = None
+    # MQTT over QUIC (rmqtt-net/src/quic.rs): served iff a QuicBackend is
+    # registered (broker/quic.py); fails fast at startup otherwise
+    quic_port: Optional[int] = None
+    tls_cert: str = ""
+    tls_key: str = ""
+    # require + verify client certificates against this CA bundle; the cert's
+    # CN/O/subject/serial land in ConnectInfo.cert_info (cert_extractor.rs)
+    tls_client_ca: str = ""
+    # PROXY protocol v1/v2 on the non-TLS listeners (builder.rs:152,466-474):
+    # the advertised source replaces the socket peer address
+    proxy_protocol: bool = False
+    # SO_REUSEPORT on the client listeners: multiple worker processes bind
+    # the same port and the kernel load-balances accepts — the multi-core
+    # analogue of the reference's multi-thread tokio accept loops
+    # (server.rs:229); workers peer over the cluster layer for cross-worker
+    # delivery (see broker/__main__.py --workers)
+    reuse_port: bool = False
+    # additional NAMED listeners (reference rmqtt-conf/src/listener.rs:
+    # [listener.tcp.<name>] / ws / tls / wss sub-tables, each its own
+    # address and TLS material): dicts with keys
+    # {name, kind: tcp|ws|tls|wss, host?, port, tls_cert?, tls_key?,
+    #  tls_client_ca?} — the flat fields above stay the primary listener
+    extra_listeners: List[Dict[str, Any]] = field(default_factory=list)
+    node_id: int = 1
+    router: str = "trie"  # "trie" (DefaultRouter) | "native" | "xla" (TorchRouter, GPU)
+    allow_anonymous: bool = True
+    allow_zero_keepalive: bool = True
+    max_connections: int = 1_000_000
+    max_handshake_delay: float = 10.0
+    max_packet_size: int = 1024 * 1024
+    max_subscriptions: int = 0  # 0 = unlimited
+    max_topic_levels: int = 0
+    max_qos: int = 2
+    retain_enable: bool = True
+    retain_max: int = 1_000_000
+    # switch retained wildcard lookups to the partitioned TPU inverse-match
+    # kernel (ops/retained_part) once the store exceeds the threshold
+    retain_tpu: bool = False
+    retain_tpu_threshold: int = 50_000
+    delayed_publish_max: int = 100_000
+    shared_subscription: bool = True
+    limit_subscription: bool = False  # enable $limit/$exclusive prefixes
+    batch_max: int = 1024
+    batch_linger_ms: float = 0.0  # 0 = latency-adaptive (no linger)
+    # max routing batches past submit at once (1 = serial dispatch)
+    routing_pipeline_depth: int = 3
+    # pre-compile the device matcher's small-batch dispatch shapes at
+    # start (background thread) so the first lone publishes don't pay an
+    # XLA compile; no-op for routers without a device matcher
+    routing_prewarm: bool = True
+    # device-table churn resilience (ops/partitioned.py): incremental HBM
+    # delta uploads (scatter only dirty chunks; off = full re-upload per
+    # mutation) and background compaction (off = synchronous compact())
+    routing_delta_uploads: bool = True
+    routing_compact_async: bool = True
+    # compaction trigger: dirty_ops > max(min_ops, table_size // ratio)
+    routing_compact_min_ops: int = 1024
+    routing_compact_ratio: int = 5
+    # epoch-versioned publish→relations match cache (router/cache.py):
+    # repeat-topic publishes skip the matcher entirely; entries invalidate
+    # by per-first-segment epochs (exact filters) / a global wildcard epoch
+    route_cache: bool = True
+    route_cache_capacity: int = 8192
+    # don't cache topics that match $share groups (the round-robin choice
+    # is per-publish either way; bypass trades hit rate for zero reuse of
+    # shared candidate sets)
+    route_cache_shared_bypass: bool = False
+    cluster: bool = False  # use a cluster-aware session registry
+    cluster_mode: str = "broadcast"  # "broadcast" | "raft"
+    # intra-node routing fabric (broker/fabric.py, [fabric] config section):
+    # one router owner per node serving every SO_REUSEPORT worker over a
+    # UDS mesh — batched publish submission, zero-copy QoS0 fan-out, and a
+    # node-local subscription directory for O(1) CONNECT kicks. Disabled by
+    # default: `--workers N` without [fabric] peers as a localhost
+    # broadcast cluster exactly as before (zero-behavior-change pin).
+    fabric_enable: bool = False
+    fabric_dir: str = ""  # UDS socket directory (required when enabled)
+    fabric_worker_id: int = 0  # 0 = use node_id
+    fabric_owner_id: int = 1  # worker holding the device table + directory
+    fabric_workers: int = 0  # expected worker count (informational)
+    fabric_batch_max: int = 256  # publishes coalesced per submit frame
+    fabric_call_timeout_s: float = 5.0
+    # owner-outage bound: submits park this long awaiting reconnect +
+    # re-register, then degrade to worker-local match (reason-counted)
+    fabric_submit_deadline_s: float = 20.0
+    # owner warm-up gate: a (re)spawned owner holds submitted fan-outs
+    # until every expected worker has re-registered its table slice, or
+    # this many seconds pass (so one dead worker can't stall the node)
+    fabric_warm_grace_s: float = 10.0
+    # overload protection (reference busy detection, node.rs:212-239 +
+    # handshake executor limits, executor.rs:66-137). NOTE reference
+    # semantics: new connections are REFUSED once a listener's active
+    # handshakes exceed 35% of max_handshaking (executor.rs:100 busy rule)
+    max_handshaking: int = 2000
+    max_handshake_rate: float = 0.0  # 0 = unlimited, else handshakes/sec
+    busy_loadavg: float = 0.0  # 0 = ignore; else refuse above load1/ncpu
+    # latency telemetry (broker/telemetry.py, [observability] config
+    # section): log2 stage histograms + slow-op ring. Disabled = the hot
+    # paths never take a timestamp (single-branch guards)
+    telemetry_enable: bool = True
+    telemetry_slow_ms: float = 100.0  # ring-log threshold per op
+    telemetry_slow_log_max: int = 256  # bounded slow-op ring size
+    # distributed per-publish tracing (broker/tracing.py, same
+    # [observability] section): head-sampling probability plus
+    # always-record-on-slow (shares telemetry_slow_ms); bounded in-memory
+    # span store. Tracing follows telemetry_enable — disabled means no
+    # trace ids, no span allocations, no timestamps.
+    trace_sample: float = 0.01  # probability a publish is head-sampled
+    trace_max_traces: int = 512  # committed traces kept (FIFO eviction)
+    trace_max_spans: int = 64  # spans kept per trace
+    # device-plane profiler + flight recorder (broker/devprof.py, same
+    # [observability] section): jit shape-key registry (compile hit vs
+    # trace, retrace-storm detection), HBM occupancy model, dispatch
+    # rollup time series and a bounded flight ring that auto-dumps on
+    # failover trips / fused-verify disagreement / retrace storms.
+    # device_profile=false keeps every instrumented jit seam at one
+    # attribute check (no keys, no timestamps, no ring appends).
+    device_profile: bool = True
+    device_ring: int = 256  # flight-recorder record cap
+    device_storm_n: int = 8  # traces within the window that flag a storm
+    device_storm_window: float = 10.0  # seconds
+    # host-plane profiler (broker/hostprof.py, same [observability]
+    # section): event-loop lag sampler (scheduled-vs-actual wakeup delta
+    # into a log2 histogram, lag-storm detection), GC pause forensics via
+    # gc.callbacks, a blocking-call watchdog that captures the loop
+    # thread's frame stack into a bounded incident ring, and fixed-
+    # interval process rollups (fds / threads / executor / RSS).
+    # host_profile=false starts no task, installs no gc callback and keeps
+    # every seam at one attribute check.
+    host_profile: bool = True
+    host_block_ms: float = 150.0  # loop-tick gap that counts as blocked
+    host_lag_storm_n: int = 8  # laggy ticks within the window = a storm
+    host_lag_storm_window: float = 10.0  # seconds
+    # devprof/hostprof rollup-ring retention (same [observability]
+    # section): interval buckets kept per profiler — at the default 5 s
+    # interval, 120 rollups = a 10-minute in-memory window
+    device_rollup_max: int = 120
+    host_rollup_max: int = 120
+    # telemetry-history plane (broker/history.py, same [observability]
+    # section): fixed-interval collector snapshotting every plane into
+    # one sample row, bounded in-memory ring + (history_dir set)
+    # CRC-framed on-disk segments with retention, range queries with
+    # downsampling/cluster merge, and an EWMA+MAD anomaly annotator.
+    # history=false starts no task and keeps every surface shape-stable.
+    history_enable: bool = True
+    history_interval_s: float = 5.0  # seconds between samples
+    history_ring_max: int = 720  # in-memory samples (1 h at 5 s)
+    history_dir: str = ""  # segment directory ("" = memory only)
+    history_segment_rows: int = 2048  # samples per segment before rotate
+    history_retention_segments: int = 16  # on-disk segments kept
+    history_anomaly_enable: bool = True
+    history_anomaly_k: float = 6.0  # breach at k x EWMA deviation
+    history_anomaly_warmup: int = 8  # samples before a series can breach
+    # hot-key attribution plane (broker/hotkeys.py, same [observability]
+    # section): Space-Saving top-k + Count-Min sketches over publish
+    # topics (count AND bytes), publishing clients, delivering
+    # subscribers and first-segment filter prefixes, epoch-rotated
+    # decay-window pairs, cluster-mergeable /hotkeys/sum, and a
+    # transition-edged top-1-share alert (slow ring + SERVER_HOTKEY).
+    # hotkeys=false starts no task and costs one attribute check/seam.
+    hotkeys_enable: bool = True
+    hotkeys_k: int = 64  # tracked keys per space (Space-Saving k)
+    hotkeys_cms_width: int = 1024  # Count-Min columns (error ~ N/width)
+    hotkeys_cms_depth: int = 4  # Count-Min rows (confidence)
+    hotkeys_window_s: float = 30.0  # decay-window epoch length
+    hotkeys_alert_share: float = 0.4  # top-1 share that pages
+    # overload-control subsystem (broker/overload.py, [overload] config
+    # section): watermark-driven NORMAL/ELEVATED/CRITICAL states, token-
+    # bucket admission, degradation tiers, circuit-broken egress. Disabled
+    # by default — enable=false is pinned to zero behavior change.
+    overload_enable: bool = False
+    overload_sample_interval: float = 1.0  # seconds between signal samples
+    overload_clear_ratio: float = 0.85  # hysteresis: clear below ratio*mark
+    overload_hold: int = 2  # consecutive clear samples before de-escalating
+    # watermarks (fractions of capacity unless noted; 0 disables a signal)
+    overload_queue_elevated: float = 0.5  # routing ingress-queue fraction
+    overload_queue_critical: float = 0.9
+    overload_mqueue_elevated: float = 0.6  # aggregate deliver-queue occupancy
+    overload_mqueue_critical: float = 0.9
+    overload_inflight_elevated: float = 0.85  # QoS1/2 window saturation
+    overload_inflight_critical: float = 0.97
+    overload_rss_elevated_mb: float = 0.0  # process RSS watermarks (MB)
+    overload_rss_critical_mb: float = 0.0
+    overload_connect_rate_elevated: float = 0.0  # handshakes/sec
+    overload_connect_rate_critical: float = 0.0
+    # admission token buckets (0 = unlimited; burst 0 = equal to the rate)
+    overload_connect_rate_limit: float = 0.0  # per listener port
+    overload_connect_burst: float = 0.0
+    overload_publish_rate_limit: float = 0.0  # per client id
+    overload_publish_burst: float = 0.0
+    # degradation knobs
+    overload_shed_slow_fraction: float = 0.5  # "slow consumer" queue fill
+    overload_batch_shrink: int = 4  # max_batch divisor at ELEVATED+
+    # circuit-breaker defaults (cluster transport + bridge producers)
+    overload_breaker_threshold: int = 5
+    overload_breaker_cooldown: float = 3.0
+    overload_breaker_max_cooldown: float = 30.0
+    # live SLO engine (broker/slo.py, [slo] config section): declarative
+    # latency/availability objectives over the telemetry histograms and
+    # reason-labeled drop counters, evaluated continuously into error
+    # budgets + multi-window burn rates (fast/slow). Observe-only (never
+    # touches the data plane); enable=false starts no task and samples
+    # nothing while /api/v1/slo stays shape-stable.
+    slo_enable: bool = True
+    slo_sample_interval: float = 5.0  # seconds between samples
+    slo_fast_window_s: float = 300.0  # fast burn window (cliff detector)
+    slo_slow_window_s: float = 3600.0  # slow burn window (budget keeper)
+    slo_burn_alert: float = 2.0  # fast burn rate that flags BURNING
+    # declarative objectives ([[slo.objectives]] rows); empty = built-in
+    # defaults (publish-e2e / connect latency + delivery availability)
+    slo_objectives: List[Dict[str, Any]] = field(default_factory=list)
+    # device-plane failover (broker/failover.py, [routing] failover_* keys):
+    # classified device-router failures trip a breaker; while open, publishes
+    # route through the host trie mirror, half-open probes rewarm (full HBM
+    # re-upload) + canary-match before switching back. Only engages on
+    # routers exposing a host fallback (XlaRouter's hybrid side table).
+    failover_enable: bool = True
+    failover_timeout_s: float = 30.0  # per-batch device deadline (watchdog)
+    failover_threshold: int = 3  # consecutive failures before opening
+    failover_cooldown: float = 1.0  # first probe delay (exp backoff after)
+    failover_max_cooldown: float = 30.0
+    failover_k_successes: int = 3  # consecutive canary passes to switch back
+    # device-plane autotuner (broker/autotune.py, [routing] autotune* keys):
+    # closed-loop controller from devprof rollups + routing telemetry to
+    # the live knob registry (broker/knobs.py) — hysteresis-guarded
+    # hill-climbing, one knob at a time, each change a canary epoch with
+    # instant rollback + cooldown. Default OFF: enable=false starts no
+    # task, writes no knob, and every surface stays shape-stable.
+    autotune_enable: bool = False
+    autotune_interval_s: float = 5.0  # controller tick period
+    autotune_canary_k: int = 8  # dispatches that must vouch for a change
+    autotune_cooldown_s: float = 30.0  # knob quarantine after a rollback
+    autotune_p99_guard: float = 2.0  # canary p99 ceiling vs baseline
+    # (2.0 = one log2 histogram bucket: adjacent-bucket moves are
+    # quantization noise, two buckets is a real regression)
+    autotune_confirm_ticks: int = 2  # consecutive ticks before a move
+    autotune_journal_max: int = 256  # bounded decision-journal ring
+    # crash-safe durability plane (broker/durability.py, [durability] conf
+    # section): group-committed write-ahead journal of retained / session /
+    # subscription / QoS1-2 pending state over a SqliteStore (or redis via
+    # durability_storage), replayed into the live broker at boot before
+    # listeners accept. Default OFF — enable=false constructs nothing and
+    # is pinned to byte-for-byte zero behavior change.
+    durability_enable: bool = False
+    durability_path: str = "./data/durability.db"
+    durability_storage: str = ""  # redis://... selects the RESP backend
+    # group-commit window: acks wait at most this long for the batched
+    # fsync; flush_max forces an early commit under burst load
+    durability_flush_interval_ms: float = 5.0
+    durability_flush_max: int = 512
+    # journal rows past the last snapshot before compaction folds them in
+    durability_compact_min: int = 4096
+    # sqlite PRAGMA synchronous for the journal db: "full" = fsync per
+    # group commit (the durability contract), "normal" trades crash
+    # windows for throughput (redis durability is appendfsync policy)
+    durability_sync: str = "full"
+    # syscall-batched data plane (broker/egress.py, [network] conf
+    # section): per-connection egress coalescing — every frame queued for
+    # a socket within one loop tick joins a single vectored send instead
+    # of one write per frame — and the hashed keepalive timer wheel (one
+    # ticking task per worker instead of one timer per connection).
+    # RMQTT_EGRESS_COALESCE=0 / RMQTT_KEEPALIVE_WHEEL=0 are operator
+    # kill-switches the TOML knobs cannot override (AND-composed, the
+    # RMQTT_DELTA_UPLOADS discipline).
+    egress_coalesce: bool = True
+    egress_high_water: int = 64 * 1024  # flush+drain past this many bytes
+    keepalive_wheel: bool = True
+    keepalive_wheel_tick: float = 1.0  # wheel resolution (seconds/slot)
+    # [failpoints] conf section (utils/failpoints.py): site name → action
+    # spec ("off | error | delay(ms) | hang | prob(p, act) | times(n, act)");
+    # RMQTT_FAILPOINTS env entries override these at context construction
+    failpoints: Dict[str, str] = field(default_factory=dict)
+    fitter: FitterConfig = field(default_factory=FitterConfig)
+
+
+def refuse_unported(cfg: BrokerConfig) -> None:
+    """Raise ``NotImplementedError`` for a configuration that needs a part
+    of the broker not yet ported to ``rmqtt_tpu_torch``, at construction
+    rather than at first use. (``retain_tpu`` raises in ``RetainStore``,
+    plugins and bridges in ``conf.instantiate_plugins``, ``--workers`` in
+    ``server.main``.)"""
+    if cfg.cluster:
+        raise NotImplementedError(
+            f"[cluster] ({cfg.cluster_mode} mode): the cluster layer is not "
+            "ported to rmqtt_tpu_torch yet (ROADMAP Queue A item 15)")
+    if cfg.durability_enable:
+        raise NotImplementedError(
+            "[durability]: the journal needs rmqtt_tpu_torch.storage, which is "
+            "not ported yet (ROADMAP Queue A item 15)")
+
+
+class ServerContext:
+    def __init__(
+        self,
+        cfg: Optional[BrokerConfig] = None,
+        router: Optional[Router] = None,
+        acl: Optional[AclEngine] = None,
+    ) -> None:
+        from rmqtt_tpu_torch.broker.shared import SessionRegistry
+        from rmqtt_tpu_torch.router.default import DefaultRouter
+
+        self.cfg = cfg or BrokerConfig()
+        refuse_unported(self.cfg)
+        self.hooks = HookRegistry()
+        self.metrics = Metrics()
+        from rmqtt_tpu_torch.broker.telemetry import Telemetry
+
+        self.telemetry = Telemetry(
+            enabled=self.cfg.telemetry_enable,
+            slow_ms=self.cfg.telemetry_slow_ms,
+            slow_log_max=self.cfg.telemetry_slow_log_max,
+        )
+        # per-publish trace registry (broker/tracing.py): shares the
+        # telemetry enable/slow knobs so "slow" means the same thing in
+        # the ring log, the histograms and the span store
+        from rmqtt_tpu_torch.broker.tracing import Tracer
+
+        self.tracer = Tracer(
+            enabled=self.cfg.telemetry_enable,
+            sample=self.cfg.trace_sample,
+            max_traces=self.cfg.trace_max_traces,
+            max_spans=self.cfg.trace_max_spans,
+            slow_ms=self.cfg.telemetry_slow_ms,
+            node_id=self.cfg.node_id,
+        )
+        # v5 enhanced-auth seam (broker/auth.py); None = AUTH methods refused
+        self.enhanced_auth = None
+        if router is None:
+            online = lambda cid: (
+                self.registry.get(cid) is not None and self.registry.get(cid).connected
+            )
+            if self.cfg.router == "xla":
+                # the device plane: TorchRouter on the current CUDA device.
+                # It raises without one; the broker never routes "xla" on
+                # the CPU (tests inject TorchRouter(device="cpu") instead)
+                from rmqtt_tpu_torch.router.torch_router import TorchRouter
+
+                router = TorchRouter(is_online=online)
+            elif self.cfg.router == "native":
+                from rmqtt_tpu_torch.router.native import NativeRouter
+
+                router = NativeRouter(is_online=online)
+            else:
+                router = DefaultRouter(is_online=online)
+        self.router = router
+        # the router records its kernel.dispatch stage through the shared
+        # registry (router/base.py telemetry seam)
+        router.telemetry = self.telemetry
+        # device-table churn knobs ([routing] section): applied to whatever
+        # table/matcher the router owns, duck-typed so trie/native routers
+        # (no device mirror) are untouched
+        rtable = getattr(router, "table", None)
+        if rtable is not None and hasattr(rtable, "compact_async"):
+            rtable.compact_async = self.cfg.routing_compact_async
+            rtable.compact_min_ops = self.cfg.routing_compact_min_ops
+            rtable.compact_ratio = max(1, self.cfg.routing_compact_ratio)
+        rmatcher = getattr(router, "matcher", None)
+        if rmatcher is not None and hasattr(rmatcher, "delta_enabled"):
+            # AND, don't assign: the matcher's __init__ already honored the
+            # RMQTT_DELTA_UPLOADS=0 kill-switch — the TOML knob must not
+            # silently re-enable the path over an operator's env override
+            rmatcher.delta_enabled = (
+                self.cfg.routing_delta_uploads and rmatcher.delta_enabled
+            )
+        self.routing = RoutingService(
+            router,
+            max_batch=self.cfg.batch_max,
+            linger_ms=self.cfg.batch_linger_ms,
+            pipeline_depth=self.cfg.routing_pipeline_depth,
+            prewarm=self.cfg.routing_prewarm,
+            cache_enable=self.cfg.route_cache,
+            cache_capacity=self.cfg.route_cache_capacity,
+            cache_shared_bypass=self.cfg.route_cache_shared_bypass,
+            telemetry=self.telemetry,
+        )
+        self.retain = RetainStore(
+            enable=self.cfg.retain_enable,
+            max_retained=self.cfg.retain_max,
+            tpu=self.cfg.retain_tpu,
+            tpu_threshold=self.cfg.retain_tpu_threshold,
+        )
+        # MessageManager seam (message.rs:61-147): the message-storage
+        # plugin installs itself here; None = storage disabled (the
+        # reference's DefaultMessageManager no-op, message.rs:148-164)
+        self.message_mgr = None
+        # TTL'd stores registered for the shared expire-sweep task (started
+        # in start()): any subsystem holding a SqliteStore/RedisStore adds
+        # itself here so expired rows are reaped whether or not the
+        # message-storage plugin (whose flush loop used to own the sweep)
+        # happens to be configured
+        self._stores: List[Any] = []
+        self._store_sweep_task = None
+        # crash-safe durability plane (broker/durability.py): None until
+        # storage/ is ported ([durability] is refused by refuse_unported);
+        # every hot-path guard stays one attribute test
+        self.durability = None
+        # intra-node routing fabric (broker/fabric.py): one router owner per
+        # node, workers submit publishes over a UDS mesh. Mutually exclusive
+        # with the cluster registries — the fabric IS this node's internal
+        # cluster; federating fabric nodes is ROADMAP item 3 territory.
+        self.fabric = None
+        if self.cfg.fabric_enable:
+            if not self.cfg.fabric_dir:
+                raise ValueError("[fabric] enable=true requires fabric.dir")
+            from rmqtt_tpu_torch.broker.fabric import (
+                FabricService,
+                FabricSessionRegistry,
+            )
+
+            self.fabric = FabricService(self, self.cfg)
+            self.routing.fabric = self.fabric
+            self.registry = FabricSessionRegistry(self)
+        else:
+            self.registry = SessionRegistry(self)
+        self.delayed = DelayedSender(self.registry.forwards, max_pending=self.cfg.delayed_publish_max)
+        self.acl = acl or AclEngine()
+        self.fitter = Fitter(self.cfg.fitter)
+        self.node_id = self.cfg.node_id
+        from rmqtt_tpu_torch.plugins import PluginManager
+        from rmqtt_tpu_torch.utils.counter import RateCounter
+
+        self.plugins = PluginManager(self)
+        self.handshake_rate = RateCounter(window=5.0)
+        from rmqtt_tpu_torch.broker.executor import HandshakeExecutor
+
+        self.hs_executor = HandshakeExecutor(
+            workers=self.cfg.max_handshaking, queue_max=self.cfg.max_connections
+        )
+        # overload controller (broker/overload.py): constructed even when
+        # disabled so every data-plane guard is one attribute test and the
+        # breaker registry / snapshot surface always exist
+        from rmqtt_tpu_torch.broker.overload import OverloadController
+
+        self.overload = OverloadController(self, self.cfg)
+        # SLO engine (broker/slo.py): constructed unconditionally (like the
+        # overload controller) so /api/v1/slo, the gauges and $SYS are
+        # shape-stable; objective specs validate here, so a bad [slo]
+        # section fails at broker construction, not mid-flight
+        from rmqtt_tpu_torch.broker.slo import SloEngine
+
+        self.slo = SloEngine(self, self.cfg)
+        # syscall-batched data plane (broker/egress.py): resolved flags
+        # SessionState reads per connection. The env kill-switches AND
+        # with the TOML knobs — a config file must never silently
+        # re-enable a path an operator killed via env (the
+        # RMQTT_DELTA_UPLOADS discipline above)
+        self.egress_coalesce = (
+            self.cfg.egress_coalesce
+            and os.environ.get("RMQTT_EGRESS_COALESCE", "") != "0")
+        self.egress_high_water = int(self.cfg.egress_high_water)
+        self.keepalive_wheel = None
+        if (self.cfg.keepalive_wheel
+                and os.environ.get("RMQTT_KEEPALIVE_WHEEL", "") != "0"):
+            from rmqtt_tpu_torch.broker.egress import KeepaliveWheel
+
+            self.keepalive_wheel = KeepaliveWheel(
+                self.metrics, self.hooks,
+                tick=self.cfg.keepalive_wheel_tick)
+        # failpoints ([failpoints] conf section, utils/failpoints.py):
+        # applied here so broker configs reach the process registry; the
+        # RMQTT_FAILPOINTS env string is re-applied on top (env outranks
+        # file, matching the load() precedence for every other section)
+        if self.cfg.failpoints:
+            import os as _os
+
+            from rmqtt_tpu_torch.utils.failpoints import FAILPOINTS
+
+            FAILPOINTS.configure(self.cfg.failpoints)
+            _env = _os.environ.get("RMQTT_FAILPOINTS", "")
+            if _env:
+                FAILPOINTS.configure_env(_env)
+        # device-plane failover (broker/failover.py): wired only for routers
+        # with a host fallback (XlaRouter's trie mirror); the breaker lives
+        # in the overload registry so it surfaces in /api/v1/overload and
+        # the open-breaker gauges like every other wrapped egress
+        if self.cfg.failover_enable and callable(
+            getattr(router, "host_available", None)
+        ):
+            from rmqtt_tpu_torch.broker.failover import DeviceFailover
+
+            self.routing.failover = DeviceFailover(
+                router,
+                self.overload.breaker(
+                    "routing.device",
+                    threshold=self.cfg.failover_threshold,
+                    cooldown=self.cfg.failover_cooldown,
+                    max_cooldown=self.cfg.failover_max_cooldown,
+                ),
+                timeout_s=self.cfg.failover_timeout_s,
+                k_successes=self.cfg.failover_k_successes,
+                metrics=self.metrics,
+                telemetry=self.telemetry,
+            )
+        # runtime knob registry (broker/knobs.py): every device/batcher
+        # kill-switch bound to its live object with provenance — the
+        # autotuner's single read/write seam and /api/v1/routing/knobs.
+        # Binding is read-only; building it changes no behavior.
+        from rmqtt_tpu_torch.broker.knobs import build_registry
+
+        self.knobs = build_registry(router, self.routing, self.cfg)
+        # device-plane autotuner (broker/autotune.py): constructed
+        # unconditionally (like overload/slo) so /api/v1/autotune and the
+        # gauges stay shape-stable; disabled = no task, no knob writes
+        from rmqtt_tpu_torch.broker.autotune import AutotuneService
+
+        self.autotune = AutotuneService(
+            self.knobs,
+            enabled=self.cfg.autotune_enable,
+            interval_s=self.cfg.autotune_interval_s,
+            canary_k=self.cfg.autotune_canary_k,
+            cooldown_s=self.cfg.autotune_cooldown_s,
+            p99_guard=self.cfg.autotune_p99_guard,
+            confirm_ticks=self.cfg.autotune_confirm_ticks,
+            journal_max=self.cfg.autotune_journal_max,
+            routing=self.routing,
+            router=router,
+            telemetry=self.telemetry,
+            metrics=self.metrics,
+            node_id=self.cfg.node_id,
+        )
+        # device-plane profiler + flight recorder (broker/devprof.py):
+        # process-global like the failpoint registry (the jit caches it
+        # models are process-global); the last-constructed context owns the
+        # telemetry ring / HBM provider wiring. Enabling also turns on the
+        # matcher's per-stage wall attribution (stage_timing) so the
+        # routing_stage_* gauges and flight records carry stage deltas.
+        from rmqtt_tpu_torch.broker.devprof import DEVPROF
+
+        DEVPROF.configure(
+            enabled=self.cfg.device_profile,
+            ring=self.cfg.device_ring,
+            storm_n=self.cfg.device_storm_n,
+            storm_window=self.cfg.device_storm_window,
+            rollup_max=self.cfg.device_rollup_max,
+            telemetry=self.telemetry,
+            hbm_provider=getattr(router, "device_hbm", None),
+        )
+        if self.cfg.device_profile:
+            rmatcher = getattr(router, "matcher", None)
+            if rmatcher is not None and hasattr(rmatcher, "stage_timing"):
+                rmatcher.stage_timing = True
+        # host-plane profiler (broker/hostprof.py): process-global like
+        # devprof (the event loop / GC / fd table it observes are
+        # process-global); the last-constructed context owns the telemetry
+        # ring + dispatch-probe wiring. The probe feeds the gc-during-
+        # dispatch correlation (how many routing batches were in flight
+        # when the collector stopped the world).
+        from rmqtt_tpu_torch.broker.hostprof import HOSTPROF
+
+        routing = self.routing
+
+        def _host_dispatch_probe(_r=routing) -> int:
+            return _r.inflight + _r._q.qsize()
+
+        self._host_dispatch_probe = _host_dispatch_probe
+        self._hostprof_started = False
+        HOSTPROF.configure(
+            enabled=self.cfg.host_profile,
+            block_ms=self.cfg.host_block_ms,
+            lag_storm_n=self.cfg.host_lag_storm_n,
+            lag_storm_window=self.cfg.host_lag_storm_window,
+            rollup_max=self.cfg.host_rollup_max,
+            telemetry=self.telemetry,
+            dispatch_probe=_host_dispatch_probe,
+        )
+        # hot-key attribution plane (broker/hotkeys.py): streaming
+        # heavy-hitter sketches over topics/clients/prefixes. Constructed
+        # before the history plane (the collector samples its shares);
+        # the routing seam is wired as an attribute so the disabled cost
+        # on the dispatch path is literally one None test.
+        from rmqtt_tpu_torch.broker.hotkeys import HotkeysService
+
+        self.hotkeys = HotkeysService(self, self.cfg)
+        routing.hotkeys = self.hotkeys if self.hotkeys.enabled else None
+        # telemetry-history plane (broker/history.py): the cross-plane
+        # timeline collector. Constructed last so its collector sees every
+        # other plane wired; recovery (history_dir set) runs here,
+        # synchronously, so a restarted broker serves its pre-restart
+        # timeline before the first new sample lands.
+        from rmqtt_tpu_torch.broker.history import HistoryService
+
+        self.history = HistoryService(self, self.cfg)
+
+    @property
+    def handshaking(self) -> int:
+        """In-flight handshakes across all listeners (executor active count)."""
+        return self.hs_executor.active_count()
+
+    def is_busy(self) -> bool:
+        """Overload check before accepting a handshake (context.rs:400-406,
+        node.rs:212-239): a busy handshake executor (ANY port above 35% of
+        its worker bound — executor.rs:100-106,137 aggregates across ports
+        the same way), handshake-rate cap, or 1-minute loadavg per cpu
+        above threshold. Admission itself is the executor's job."""
+        cfg = self.cfg
+        if self.hs_executor.is_busy():
+            return True
+        if cfg.max_handshake_rate and self.handshake_rate.rate() > cfg.max_handshake_rate:
+            return True
+        if cfg.busy_loadavg:
+            import os
+
+            try:
+                load1 = os.getloadavg()[0] / (os.cpu_count() or 1)
+            except OSError:
+                return False
+            if load1 > cfg.busy_loadavg:
+                return True
+        return False
+
+    # ------------------------------------------------------ store sweeping
+    def add_store(self, store) -> None:
+        """Register a TTL'd store for the periodic expire sweep (plugins
+        and the durability plane call this; idempotent)."""
+        if store not in self._stores:
+            self._stores.append(store)
+
+    def remove_store(self, store) -> None:
+        if store in self._stores:
+            self._stores.remove(store)
+
+    async def sweep_stores_once(self) -> int:
+        """Reap expired rows from every registered store (executor-hopped:
+        network backends must not run socket RTTs on the loop). Returns
+        rows reaped; failures skip to the next store — a dead backend must
+        not starve the others."""
+        import logging as _logging
+
+        loop = asyncio.get_running_loop()
+        reaped = 0
+        for store in list(self._stores):
+            try:
+                reaped += int(await loop.run_in_executor(
+                    None, store.expire_sweep) or 0)
+            except Exception:
+                _logging.getLogger("rmqtt_tpu_torch.broker").warning(
+                    "store expire sweep failed", exc_info=True)
+        if reaped:
+            self.metrics.inc("storage.expired_reaped", reaped)
+        return reaped
+
+    async def _store_sweep_loop(self) -> None:
+        while True:
+            await asyncio.sleep(STORE_SWEEP_INTERVAL_S)
+            await self.sweep_stores_once()
+
+    def start(self) -> None:
+        self.routing.start()
+        self.delayed.start()
+        self.overload.start()
+        self.slo.start()
+        self.autotune.start()  # no-op while [routing] autotune = false
+        self.hotkeys.start()  # no-op while [observability] hotkeys = false
+        self.history.start()  # no-op while [observability] history = false
+        # host-plane profiler: refcounted process-global start (a second
+        # in-process broker shares the one sampler); no-op when disabled
+        from rmqtt_tpu_torch.broker.hostprof import HOSTPROF
+
+        if HOSTPROF.enabled and not self._hostprof_started:
+            HOSTPROF.start()
+            self._hostprof_started = True
+        if self.durability is not None:
+            self.durability.start()
+        if self.keepalive_wheel is not None:
+            self.keepalive_wheel.start()
+        if self._store_sweep_task is None:
+            self._store_sweep_task = asyncio.get_running_loop().create_task(
+                self._store_sweep_loop(), name="store-sweep")
+
+    async def stop(self) -> None:
+        # history first: its collector reads every other plane, so it must
+        # stop (and close its open segment cleanly) before they do
+        await self.history.stop()
+        await self.hotkeys.stop()
+        if self.fabric is not None:
+            await self.fabric.stop()
+        if self._store_sweep_task is not None:
+            self._store_sweep_task.cancel()
+            try:
+                await self._store_sweep_task
+            except asyncio.CancelledError:
+                pass
+            self._store_sweep_task = None
+        if self.durability is not None:
+            await self.durability.stop()
+        if self.keepalive_wheel is not None:
+            await self.keepalive_wheel.stop()
+        await self.autotune.stop()
+        await self.slo.stop()
+        await self.overload.stop()
+        await self.routing.stop()
+        await self.delayed.stop()
+        # unhook THIS context from the process-global profiler: a bound
+        # hbm_provider would otherwise pin the router (and its whole match
+        # table / device arrays) for the process lifetime and keep serving
+        # a dead broker's HBM occupancy on /metrics scrapes
+        from rmqtt_tpu_torch.broker.devprof import DEVPROF
+
+        if DEVPROF.telemetry is self.telemetry:
+            DEVPROF.configure(telemetry=None)
+        hp = DEVPROF.hbm_provider
+        if hp is not None and getattr(hp, "__self__", None) is self.router:
+            DEVPROF.configure(hbm_provider=None)
+        # same unhook discipline for the host profiler: release this
+        # context's refcount and drop closures that would pin the broker
+        from rmqtt_tpu_torch.broker.hostprof import HOSTPROF
+
+        if self._hostprof_started:
+            self._hostprof_started = False
+            await HOSTPROF.stop()
+        if HOSTPROF.telemetry is self.telemetry:
+            HOSTPROF.configure(telemetry=None)
+        if HOSTPROF.dispatch_probe is self._host_dispatch_probe:
+            HOSTPROF.configure(dispatch_probe=None)
+
+    def stats(self) -> Stats:
+        s = Stats()
+        s.connections = self.registry.connected_count()
+        s.sessions = self.registry.session_count()
+        s.subscriptions = self.router.routes_count()
+        s.retaineds = self.retain.count()
+        s.delayed_publishs = len(self.delayed)
+        s.topics = self.router.topics_count()
+        s.routes = self.router.routes_count()
+        s.handshakings = self.metrics.get("connections.established")
+        s.handshakings_active = self.hs_executor.active_count()
+        s.handshakings_rate = int(self.handshake_rate.rate() * 100)
+        s.forwards = self.metrics.get("cluster.forwards")
+        s.message_storages = self.metrics.get("storage.messages_stored")
+        s.subscriptions_shared = self.router.shared_groups_count()
+        for sess in self.registry.sessions():
+            s.message_queues += len(sess.deliver_queue)
+            s.out_inflights += len(sess.out_inflight)
+            s.in_inflights += len(sess.in_qos2)
+        # routing-service gauges (per-exec stats parity, context.rs:506-555)
+        for k, v in self.routing.stats().items():
+            setattr(s, k, v)
+        # overload gauges (broker/overload.py): state + breaker health
+        s.overload_state = int(self.overload.state)
+        s.overload_transitions = self.overload.transitions
+        s.overload_open_breakers = sum(
+            1 for b in self.overload.breakers.values()
+            if b.state != b.CLOSED
+        )
+        # SLO gauges (broker/slo.py): worst objective state + transitions
+        s.slo_state = int(self.slo.worst_state)
+        s.slo_transitions = self.slo.transitions
+        # autotuner gauges (broker/autotune.py): decision/commit/rollback
+        # counters (summable in /stats/sum); zeros while disabled
+        s.autotune_decisions = self.autotune.decisions
+        s.autotune_commits = self.autotune.commits
+        s.autotune_rollbacks = self.autotune.rollbacks
+        # cluster membership + partition-healing gauges
+        # (cluster/membership.py); the counters exist (zero) on single-node
+        # brokers too, so dashboards keep one shape
+        cluster = getattr(self.registry, "cluster", None)
+        ms = getattr(cluster, "membership", None)
+        if ms is not None:
+            counts = ms.state_counts()
+            s.cluster_peers_alive = counts["alive"]
+            s.cluster_peers_suspect = counts["suspect"]
+            s.cluster_peers_dead = counts["dead"]
+        s.cluster_membership_transitions = self.metrics.get(
+            "cluster.membership.transitions")
+        s.cluster_retain_sync_dropped = self.metrics.get(
+            "messages.dropped.retain_sync")
+        s.cluster_fence_kicks = self.metrics.get("cluster.fence_kicks")
+        s.cluster_anti_entropy_runs = self.metrics.get(
+            "cluster.anti_entropy.runs")
+        # syscall-batched data plane gauges (broker/egress.py): how many
+        # frames the coalescer absorbed vs how many vectored writes it
+        # issued (frames/flushes ≈ syscalls saved), plus wheel occupancy
+        s.net_egress_frames = self.metrics.get("net.egress_frames")
+        s.net_egress_flushes = self.metrics.get("net.egress_flushes")
+        s.net_egress_bytes = self.metrics.get("net.egress_bytes")
+        s.net_egress_coalesced = self.metrics.get("net.egress_coalesced")
+        s.net_egress_drains = self.metrics.get("net.egress_drains")
+        wheel = self.keepalive_wheel
+        if wheel is not None:
+            s.net_wheel_sessions = wheel.sessions
+            s.net_wheel_timeouts = wheel.timeouts
+        # device-plane profiler gauges (broker/devprof.py): jit registry
+        # totals + retrace storms + modeled HBM residency (fleet-summable)
+        from rmqtt_tpu_torch.broker.devprof import DEVPROF
+
+        s.device_jit_traces = DEVPROF.traces
+        s.device_jit_cache_hits = DEVPROF.cache_hits
+        s.device_retrace_storms = DEVPROF.storms
+        # host-plane profiler gauges (broker/hostprof.py): loop-lag p99 +
+        # laggy/storm/blocked/gc counters; zeros while host_profile is off
+        # (the live /proc probes are skipped too — disabled costs nothing)
+        from rmqtt_tpu_torch.broker.hostprof import HOSTPROF
+
+        if HOSTPROF.enabled:
+            s.host_loop_lag_p99_ms = round(
+                HOSTPROF.lag_hist.quantile(0.99) / 1e6, 3)
+            s.host_loop_laggy_ticks = HOSTPROF.laggy_ticks
+            s.host_lag_storms = HOSTPROF.lag_storms
+            s.host_blocked_calls = HOSTPROF.blocked_calls
+            s.host_gc_pauses = sum(HOSTPROF.gc_pauses.values())
+            s.host_gc_pause_ms_total = round(
+                sum(HOSTPROF.gc_pause_ns.values()) / 1e6, 3)
+            from rmqtt_tpu_torch.broker.hostprof import _fd_count
+            import threading as _threading
+
+            s.host_open_fds = _fd_count()
+            s.host_threads = _threading.active_count()
+        hbm = getattr(self.router, "device_hbm", None)
+        if callable(hbm):
+            try:
+                s.device_hbm_modeled_mb = round(
+                    (hbm() or {}).get("total_bytes", 0) / 2**20, 3)
+            except Exception:
+                pass
+        # durability-plane gauges (broker/durability.py): journal health +
+        # what the last cold-start recovery replayed; zeros while disabled
+        dur = self.durability
+        if dur is not None:
+            s.durability_enabled = 1
+            s.durability_journal_len = max(
+                0, dur._committed - dur._snapshot_seq)
+            s.durability_appends = dur.appends
+            s.durability_commits = dur.commits
+            s.durability_compactions = dur.compactions
+            s.durability_recovered_retained = dur.recovered["retained"]
+            s.durability_recovered_sessions = dur.recovered["sessions"]
+            s.durability_recovered_subs = dur.recovered["subs"]
+            s.durability_recovered_inflight = dur.recovered["inflight"]
+            s.durability_recovery_ms = dur.recovery_ms
+        # telemetry-history gauges (broker/history.py); zeros while the
+        # collector is disabled so the surface stays shape-stable
+        hist = self.history.snapshot()
+        s.history_samples = hist["samples"]
+        s.history_anomalies = hist["anomalies"]
+        s.history_segments = hist["segments"]
+        s.history_recovered_rows = hist["recovered_rows"]
+        # hot-key attribution gauges (broker/hotkeys.py); zeros while
+        # disabled. Tracked-key counts + counters only — the top-1 SHARE
+        # stays off this surface (/stats/sum sums plain gauges; a summed
+        # ratio lies) and rides the scrape/history instead
+        for k, v in self.hotkeys.stats_block().items():
+            setattr(s, k, v)
+        # process RSS (utils/sysmon.py — same probe the overload sampler
+        # uses); sums to a cluster memory total in /stats/sum
+        from rmqtt_tpu_torch.utils.sysmon import rss_mb
+
+        s.rss_mb = rss_mb()
+        return s

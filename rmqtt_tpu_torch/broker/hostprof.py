@@ -1,0 +1,810 @@
+"""Host-plane flight recorder: event-loop lag, GC forensics, blocking-call
+incidents and process rollups — the devprof symmetric for the HOST runtime.
+
+The device profiler made the *device* plane fully observable (broker/devprof.py: retrace
+storms, HBM reconciliation, per-dispatch ring); but every packet still
+crosses the *host* plane — one asyncio event loop, a garbage collector
+that stops the world, executor thread pools, an fd/socket budget — and
+that plane had zero instrumentation even though the telemetry/SLO surfaces
+regularly show tail latency no device or routing stage explains. Broker
+benchmarking at scale (arxiv 2603.21600) finds host-runtime stalls
+dominate p99; this module makes them attributable:
+
+``event-loop lag sampler``
+    An asyncio task sleeps a fixed ``tick_s`` and measures the
+    scheduled-vs-actual wakeup delta into a log2 ``Histogram``
+    (mergeable cluster-wide like every latency stage). A tick whose lag
+    reaches ``block_ms`` is a *laggy tick*; ``lag_storm_n`` laggy ticks
+    inside ``lag_storm_window`` seconds is a **lag storm** (the host
+    analogue of devprof's retrace storm): counted, annotated on the
+    slow-op ring (``host.lag_storm``) and auto-dumped.
+
+``GC forensics`` (``gc.callbacks``)
+    Pause duration histograms per generation, objects collected /
+    uncollectable, and — the forensic the flat counters can't give —
+    *gc-during-dispatch correlation*: a pause at/over ``gc_slow_ms``
+    lands on the slow-op ring (``host.gc_pause``) carrying whether a
+    routing dispatch was in flight when the collector stopped the world,
+    so "p99 burst at t == gen2 pause" is readable off one timeline.
+
+``blocking-call detector``
+    A watchdog daemon thread notices when the sampler task hasn't ticked
+    for ``block_ms`` and captures the event-loop thread's live frame
+    stack (``sys._current_frames``) into a bounded incident ring — "who
+    wedged the loop" becomes answerable in production, not just in a
+    debugger. The episode's final duration is recorded when the loop
+    resumes; the incident annotates the slow ring (``host.blocked``) and
+    auto-dumps.
+
+``process rollups``
+    Fixed-interval buckets of loop-lag p50/p99, laggy ticks, GC pauses,
+    executor/thread counts, open fds and RSS — time series, not just
+    cumulative counters.
+
+Incidents auto-dump (schema ``rmqtt_tpu_torch.hostprof_dump/1``, rate-limited
+per reason) on lag storms, blocking-call episodes, SLO BURNING/EXHAUSTED
+transitions (broker/slo.py) and overload CRITICAL escalations
+(broker/overload.py). Surfaces follow the house pattern: ``/api/v1/host``
+(+ cluster ``/host/sum`` via a ``what=host`` DATA query, lag histograms
+bucket-merged like latency), ``rmqtt_host_*`` Prometheus families,
+``$SYS/brokers/<n>/host/{loop,gc,incidents}``, dashboard "Host plane"
+cards, ``stats()`` gauges, ``[observability]`` knobs (``host_profile``,
+``block_ms``, ``lag_storm_n``, ``lag_storm_window``).
+
+``enabled=False`` keeps every seam at ONE attribute check — no sampler
+task, no gc callback installed, no watchdog thread, no timestamps — while
+the surfaces stay shape-stable (zeros). The profiler is process-global
+(``HOSTPROF``) like devprof: the loop, the collector and the fd table it
+observes are process-global too. ``start()``/``stop()`` are
+reference-counted so in-process multi-broker tests share one sampler.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import gc
+import json
+import logging
+import os
+import sys
+import threading
+import time
+import traceback
+from collections import deque
+from typing import Any, Callable, Dict, List, Optional
+
+from rmqtt_tpu_torch.broker.telemetry import Histogram, prom_sanitize
+
+_LOG = logging.getLogger("rmqtt_tpu_torch.hostprof")
+
+DUMP_SCHEMA = "rmqtt_tpu_torch.hostprof_dump/1"
+
+#: GC generations tracked (CPython's three)
+_GENS = (0, 1, 2)
+
+
+def _fd_count() -> int:
+    """Open file descriptors (sockets included). /proc is the cheap exact
+    source on Linux; elsewhere 0 (the gauge reads "unavailable", never
+    raises on the sampler path)."""
+    try:
+        return len(os.listdir("/proc/self/fd"))
+    except OSError:
+        return 0
+
+
+def _executor_stats(loop) -> Dict[str, int]:
+    """Default-executor saturation: live worker threads + queued work.
+    Reads private ThreadPoolExecutor attributes defensively — a CPython
+    layout change degrades to zeros, never breaks the sampler."""
+    out = {"threads": 0, "queue": 0, "max_workers": 0}
+    ex = getattr(loop, "_default_executor", None)
+    if ex is None:
+        return out
+    try:
+        out["threads"] = len(getattr(ex, "_threads", ()) or ())
+        out["max_workers"] = int(getattr(ex, "_max_workers", 0) or 0)
+        q = getattr(ex, "_work_queue", None)
+        if q is not None:
+            out["queue"] = q.qsize()
+    except Exception:
+        pass
+    return out
+
+
+class _Rollup:
+    """One fixed-interval host bucket (the time-series element)."""
+
+    __slots__ = ("t", "ticks", "laggy", "hist", "gc_pauses", "gc_pause_ns",
+                 "blocked", "fds", "threads", "executor_queue", "rss_mb")
+
+    def __init__(self, t: int) -> None:
+        self.t = t
+        self.ticks = 0
+        self.laggy = 0
+        self.hist = Histogram()  # loop-lag ns within this interval
+        self.gc_pauses = 0
+        self.gc_pause_ns = 0
+        self.blocked = 0
+        self.fds = 0
+        self.threads = 0
+        self.executor_queue = 0
+        self.rss_mb = 0.0
+
+    def row(self) -> dict:
+        return {
+            "t": self.t,
+            "ticks": self.ticks,
+            "laggy": self.laggy,
+            "lag_p50_ms": round(self.hist.quantile(0.50) / 1e6, 3),
+            "lag_p99_ms": round(self.hist.quantile(0.99) / 1e6, 3),
+            "gc_pauses": self.gc_pauses,
+            "gc_pause_ms": round(self.gc_pause_ns / 1e6, 3),
+            "blocked": self.blocked,
+            "fds": self.fds,
+            "threads": self.threads,
+            "executor_queue": self.executor_queue,
+            "rss_mb": self.rss_mb,
+        }
+
+
+class HostProfiler:
+    """Process-global host-plane profiler + incident flight recorder."""
+
+    def __init__(
+        self,
+        enabled: bool = False,
+        tick_s: float = 0.05,
+        block_ms: float = 150.0,
+        lag_storm_n: int = 8,
+        lag_storm_window: float = 10.0,
+        gc_slow_ms: float = 5.0,
+        interval_s: float = 5.0,
+        rollup_max: int = 120,
+        incident_max: int = 32,
+        dump_dir: Optional[str] = None,
+    ) -> None:
+        self.enabled = enabled
+        self.tick_s = max(0.005, tick_s)
+        self.block_ms = max(1.0, block_ms)
+        self.lag_storm_n = max(2, lag_storm_n)
+        self.lag_storm_window = max(0.1, lag_storm_window)
+        self.gc_slow_ms = max(0.0, gc_slow_ms)
+        self.interval_s = max(0.1, interval_s)
+        self.rollup_max = max(2, rollup_max)
+        self.incident_max = max(1, incident_max)
+        self.dump_dir = dump_dir
+        #: telemetry registry whose slow-op ring incidents annotate (wired
+        #: by ServerContext); None outside a broker
+        self.telemetry = None
+        #: callable → in-flight routing batches (wired by ServerContext to
+        #: the RoutingService) for the gc-during-dispatch correlation
+        self.dispatch_probe: Optional[Callable[[], int]] = None
+        # reentrant: a collection that starts while this thread holds the
+        # lock (snapshot() allocates under it) runs _gc_cb on the same
+        # thread, which takes the lock again. A plain Lock deadlocks there,
+        # and then every thread that collects waits on it
+        self._lock = threading.RLock()
+        # lifecycle: reference-counted start/stop (several in-process
+        # brokers share the one loop/GC/fd table they'd each observe)
+        self._starts = 0
+        self._task: Optional[asyncio.Task] = None
+        self._watchdog: Optional[threading.Thread] = None
+        self._stop_evt = threading.Event()
+        self._gc_installed = False
+        self._loop = None
+        self._loop_thread_id: Optional[int] = None
+        self._reset_state()
+
+    def _reset_state(self) -> None:
+        # loop-lag accounting
+        self.lag_hist = Histogram()
+        self.ticks = 0
+        self.laggy_ticks = 0
+        self.max_lag_ms = 0.0
+        self.lag_storms = 0
+        self.last_storm: Optional[dict] = None
+        self._laggy_ts: deque = deque()
+        self._last_storm_mono = -1e18
+        self._last_tick_mono = 0.0
+        # gc accounting
+        self._gc_t0: Dict[int, int] = {}
+        self.gc_hist: Dict[int, Histogram] = {g: Histogram() for g in _GENS}
+        self.gc_pauses: Dict[int, int] = {g: 0 for g in _GENS}
+        self.gc_pause_ns: Dict[int, int] = {g: 0 for g in _GENS}
+        self.gc_collected: Dict[int, int] = {g: 0 for g in _GENS}
+        self.gc_uncollectable: Dict[int, int] = {g: 0 for g in _GENS}
+        # blocking-call incidents
+        self.blocked_calls = 0
+        self.longest_block_ms = 0.0
+        self.incidents: deque = deque(maxlen=self.incident_max)
+        self._in_block = False
+        self._block_incident: Optional[dict] = None
+        self._block_start_mono = 0.0
+        # rollups
+        self._rollups: deque = deque(maxlen=self.rollup_max)
+        # dump bookkeeping
+        self.dumps_log: deque = deque(maxlen=16)
+        self.last_dump: Optional[dict] = None
+        self._last_dump_mono: Dict[str, float] = {}
+
+    # ------------------------------------------------------------ lifecycle
+    def configure(self, **kw: Any) -> None:
+        """Apply [observability] host knobs (ServerContext / tests).
+        Counters survive a reconfigure, like devprof."""
+        with self._lock:
+            for name in ("enabled", "dump_dir", "telemetry", "dispatch_probe"):
+                if name in kw:
+                    setattr(self, name, kw[name])
+            if "tick_s" in kw:
+                self.tick_s = max(0.005, float(kw["tick_s"]))
+            if "block_ms" in kw:
+                self.block_ms = max(1.0, float(kw["block_ms"]))
+            if "lag_storm_n" in kw:
+                self.lag_storm_n = max(2, int(kw["lag_storm_n"]))
+            if "lag_storm_window" in kw:
+                self.lag_storm_window = max(0.1, float(kw["lag_storm_window"]))
+            if "gc_slow_ms" in kw:
+                self.gc_slow_ms = max(0.0, float(kw["gc_slow_ms"]))
+            if "interval_s" in kw:
+                self.interval_s = max(0.1, float(kw["interval_s"]))
+            if "incident_max" in kw and int(kw["incident_max"]) != self.incident_max:
+                self.incident_max = max(1, int(kw["incident_max"]))
+                self.incidents = deque(self.incidents, maxlen=self.incident_max)
+            if ("rollup_max" in kw
+                    and max(2, int(kw["rollup_max"])) != self.rollup_max):
+                self.rollup_max = max(2, int(kw["rollup_max"]))
+                self._rollups = deque(self._rollups,
+                                      maxlen=self.rollup_max)
+
+    def reset(self) -> None:
+        """Drop every counter/ring (tests; the profiler is process-global,
+        so accumulated state would otherwise leak across cases)."""
+        with self._lock:
+            self._reset_state()
+
+    def start(self) -> None:
+        """Arm the sampler task + watchdog + gc callbacks on the RUNNING
+        loop. Reference-counted: the first start arms, later starts (a
+        second in-process broker) just count; disabled = no-op."""
+        if not self.enabled:
+            return
+        self._starts += 1
+        if self._task is not None and not self._task.done():
+            return
+        loop = asyncio.get_running_loop()
+        self._loop = loop
+        self._loop_thread_id = threading.get_ident()
+        self._last_tick_mono = time.monotonic()
+        self._task = loop.create_task(self._sample_loop(), name="hostprof")
+        if not self._gc_installed:
+            gc.callbacks.append(self._gc_cb)
+            self._gc_installed = True
+        # each watchdog owns its OWN stop event: a stop() immediately
+        # followed by a start() (broker restart in one process) must not
+        # clear the set flag before the old thread observes it — that
+        # would leak a second concurrent watchdog
+        self._stop_evt = threading.Event()
+        self._watchdog = threading.Thread(
+            target=self._watchdog_loop, args=(self._stop_evt,),
+            name="rmqtt-hostprof-watchdog", daemon=True)
+        self._watchdog.start()
+
+    async def stop(self) -> None:
+        """Release one start; the last release disarms everything."""
+        if self._starts > 0:
+            self._starts -= 1
+        if self._starts > 0:
+            return
+        self._stop_evt.set()
+        if self._gc_installed:
+            try:
+                gc.callbacks.remove(self._gc_cb)
+            except ValueError:
+                pass
+            self._gc_installed = False
+        task, self._task = self._task, None
+        if task is not None:
+            task.cancel()
+            try:
+                await task
+            except (asyncio.CancelledError, Exception):
+                pass
+        self._watchdog = None
+        self._loop = None
+        self._loop_thread_id = None
+
+    # ---------------------------------------------------------- loop sampler
+    async def _sample_loop(self) -> None:
+        loop = asyncio.get_running_loop()
+        next_rollup = time.monotonic() + self.interval_s
+        while True:
+            tick = self.tick_s
+            scheduled = loop.time() + tick
+            await asyncio.sleep(tick)
+            lag_s = max(0.0, loop.time() - scheduled)
+            now = time.monotonic()
+            self._last_tick_mono = now
+            try:
+                self.note_lag(int(lag_s * 1e9), now)
+                if now >= next_rollup:
+                    next_rollup = now + self.interval_s
+                    self._proc_rollup(loop)
+            except Exception:  # a bookkeeping bug must not kill the sampler
+                _LOG.exception("hostprof sample failed")
+
+    def note_lag(self, lag_ns: int, now: Optional[float] = None) -> None:
+        """Record one scheduled-vs-actual wakeup delta (test entry point).
+        A lag at/over ``block_ms`` is a laggy tick; a burst of them inside
+        the storm window is a LAG STORM (counter + slow-ring annotation +
+        auto-dump, devprof retrace-storm style)."""
+        if now is None:
+            now = time.monotonic()
+        lag_ms = lag_ns / 1e6
+        storm: Optional[dict] = None
+        with self._lock:
+            self.ticks += 1
+            self.lag_hist.record(lag_ns)
+            r = self._rollup()
+            r.ticks += 1
+            r.hist.record(lag_ns)
+            if lag_ms > self.max_lag_ms:
+                self.max_lag_ms = round(lag_ms, 3)
+            if lag_ms >= self.block_ms:
+                self.laggy_ticks += 1
+                r.laggy += 1
+                self._laggy_ts.append(now)
+                horizon = now - self.lag_storm_window
+                while self._laggy_ts and self._laggy_ts[0] < horizon:
+                    self._laggy_ts.popleft()
+                if (len(self._laggy_ts) >= self.lag_storm_n
+                        and now - self._last_storm_mono
+                        >= self.lag_storm_window):
+                    self.lag_storms += 1
+                    self._last_storm_mono = now
+                    storm = self.last_storm = {
+                        "ts": round(time.time(), 3),
+                        "laggy_in_window": len(self._laggy_ts),
+                        "window_s": self.lag_storm_window,
+                        "last_lag_ms": round(lag_ms, 3),
+                    }
+        if storm is not None:
+            _LOG.warning(
+                "event-loop LAG STORM: %d ticks lagged >= %.0fms in %.1fs "
+                "(last %.1fms) — something keeps starving the loop",
+                storm["laggy_in_window"], self.block_ms, storm["window_s"],
+                storm["last_lag_ms"])
+            self._annotate_ring("host.lag_storm", storm)
+            self.auto_dump("lag_storm")
+
+    def _rollup(self) -> _Rollup:
+        """Current interval bucket (caller holds the lock)."""
+        t = int(time.time() // self.interval_s * self.interval_s)
+        if not self._rollups or self._rollups[-1].t != t:
+            self._rollups.append(_Rollup(t))
+        return self._rollups[-1]
+
+    def _proc_rollup(self, loop) -> None:
+        """Stamp the process gauges onto the current interval bucket."""
+        from rmqtt_tpu_torch.utils.sysmon import rss_mb
+
+        ex = _executor_stats(loop)
+        fds = _fd_count()
+        rss = rss_mb()
+        with self._lock:
+            r = self._rollup()
+            r.fds = fds
+            r.threads = threading.active_count()
+            r.executor_queue = ex["queue"]
+            r.rss_mb = rss
+
+    # ------------------------------------------------------------- GC seam
+    def _gc_cb(self, phase: str, info: dict) -> None:
+        """gc.callbacks hook: pause duration per generation + collected
+        totals; slow pauses land on the slow-op ring with the in-dispatch
+        correlation. Runs on whichever thread triggered collection."""
+        gen = info.get("generation", 2)
+        if phase == "start":
+            self._gc_t0[gen] = time.perf_counter_ns()
+            return
+        t0 = self._gc_t0.pop(gen, None)
+        if t0 is None:
+            return
+        dur_ns = time.perf_counter_ns() - t0
+        collected = int(info.get("collected", 0) or 0)
+        uncollectable = int(info.get("uncollectable", 0) or 0)
+        with self._lock:
+            self.gc_pauses[gen] = self.gc_pauses.get(gen, 0) + 1
+            self.gc_pause_ns[gen] = self.gc_pause_ns.get(gen, 0) + dur_ns
+            self.gc_collected[gen] = self.gc_collected.get(gen, 0) + collected
+            self.gc_uncollectable[gen] = (
+                self.gc_uncollectable.get(gen, 0) + uncollectable)
+            h = self.gc_hist.get(gen)
+            if h is None:
+                h = self.gc_hist[gen] = Histogram()
+            h.record(dur_ns)
+            r = self._rollup()
+            r.gc_pauses += 1
+            r.gc_pause_ns += dur_ns
+        if self.gc_slow_ms and dur_ns >= self.gc_slow_ms * 1e6:
+            in_dispatch = 0
+            probe = self.dispatch_probe
+            if probe is not None:
+                try:
+                    in_dispatch = int(probe() or 0)
+                except Exception:
+                    pass
+            self._annotate_ring("host.gc_pause", {
+                "generation": gen,
+                "pause_ms": round(dur_ns / 1e6, 3),
+                "collected": collected,
+                "uncollectable": uncollectable,
+                # the forensic: was the collector stopping the world while
+                # routing batches were in flight?
+                "in_dispatch": in_dispatch,
+            })
+
+    # ------------------------------------------------- blocking-call watchdog
+    def _watchdog_loop(self, stop_evt: threading.Event) -> None:
+        """Daemon thread: when the sampler task misses its tick for
+        ``block_ms``, capture the loop thread's live stack ONCE per
+        episode; finalize (duration + slow-ring + auto-dump) when the loop
+        resumes. Stack capture happens mid-block by construction — that is
+        the entire point of a thread-side watchdog."""
+        while not stop_evt.wait(max(0.01, self.block_ms / 1e3 / 4)):
+            task = self._task
+            if (not self.enabled or task is None or task.done()
+                    or self._loop_thread_id is None):
+                continue
+            gap_s = time.monotonic() - self._last_tick_mono
+            blocked = gap_s * 1e3 >= self.block_ms + self.tick_s * 1e3
+            if blocked and not self._in_block:
+                self._in_block = True
+                self._begin_incident(gap_s)
+            elif not blocked and self._in_block:
+                self._in_block = False
+                self._end_incident()
+
+    def _capture_loop_stack(self, limit: int = 24) -> List[str]:
+        frame = sys._current_frames().get(self._loop_thread_id)
+        if frame is None:
+            return []
+        return [line.rstrip("\n")
+                for line in traceback.format_stack(frame, limit=limit)]
+
+    def _begin_incident(self, gap_s: float) -> None:
+        stack = self._capture_loop_stack()
+        incident = {
+            "kind": "blocking_call",
+            "ts": round(time.time(), 3),
+            "blocked_ms": round(gap_s * 1e3, 1),  # still running; updated
+            "ongoing": True,
+            "stack": stack,
+        }
+        with self._lock:
+            self.blocked_calls += 1
+            self._block_incident = incident
+            # the episode started at the last tick the sampler made, not
+            # when the watchdog happened to notice it
+            self._block_start_mono = time.monotonic() - gap_s
+            self.incidents.append(incident)
+            self._rollup().blocked += 1
+        _LOG.warning(
+            "event loop BLOCKED for %.0fms and counting — culprit stack:\n%s",
+            gap_s * 1e3, "\n".join(stack[-6:]))
+
+    def _end_incident(self) -> None:
+        with self._lock:
+            incident = self._block_incident
+            self._block_incident = None
+            if incident is None:
+                return
+            # _last_tick_mono is the sampler's RESUME stamp: the episode
+            # ran from the stamp before the block to roughly there
+            total_ms = round(
+                (self._last_tick_mono - self._block_start_mono) * 1e3, 1)
+            incident["ongoing"] = False
+            incident["blocked_ms"] = max(incident["blocked_ms"], total_ms)
+            if incident["blocked_ms"] > self.longest_block_ms:
+                self.longest_block_ms = incident["blocked_ms"]
+        self._annotate_ring("host.blocked", {
+            "blocked_ms": incident["blocked_ms"],
+            "stack_tail": incident["stack"][-3:],
+        })
+        self.auto_dump("blocking_call")
+
+    # ------------------------------------------------------------ annotations
+    def _annotate_ring(self, op: str, detail: dict) -> None:
+        """Slow-op ring annotation — host incidents land on the same
+        timeline as overload/slo/failover transitions and slow publishes,
+        which is what makes cross-plane correlation a single read."""
+        tele = self.telemetry
+        if tele is not None and getattr(tele, "enabled", False):
+            tele.slow_ops.append({
+                "op": op, "ms": float(detail.get("blocked_ms")
+                                      or detail.get("pause_ms") or 0.0),
+                "ts": round(time.time(), 3),
+                "detail": detail,
+            })
+
+    def rollup_summary(self, since: Optional[float] = None,
+                       n: Optional[int] = None) -> dict:
+        """Rollup CONSUMER API (devprof's sibling, the history collector's
+        signal source): merge the interval buckets at/after ``since`` (or
+        the newest ``n``; the newest 6 by default) into one window summary
+        — ticks, laggy ticks, lag p50/p99, GC pauses/pause-ms, blocking
+        incidents. Cheaper than ``snapshot()`` (no /proc scan, no incident
+        tables) so a collector can poll it every few seconds."""
+        with self._lock:
+            rolls = list(self._rollups)
+        if since is not None:
+            rolls = [r for r in rolls if r.t + self.interval_s > since]
+        elif n is not None:
+            rolls = rolls[-max(0, n):]
+        else:
+            rolls = rolls[-6:]
+        hist = Histogram()
+        out = {"intervals": len(rolls), "ticks": 0, "laggy": 0,
+               "gc_pauses": 0, "gc_pause_ns": 0, "blocked": 0}
+        for r in rolls:
+            out["ticks"] += r.ticks
+            out["laggy"] += r.laggy
+            out["gc_pauses"] += r.gc_pauses
+            out["gc_pause_ns"] += r.gc_pause_ns
+            out["blocked"] += r.blocked
+            hist.merge(r.hist)
+        out["gc_pause_ms"] = round(out.pop("gc_pause_ns") / 1e6, 3)
+        out["lag_p50_ms"] = round(hist.quantile(0.50) / 1e6, 3)
+        out["lag_p99_ms"] = round(hist.quantile(0.99) / 1e6, 3)
+        return out
+
+    # ------------------------------------------------------------- surfaces
+    def snapshot(self) -> dict:
+        """The `/api/v1/host` body: shape-stable whether enabled or not."""
+        with self._lock:
+            gens = {
+                str(g): {
+                    "pauses": self.gc_pauses.get(g, 0),
+                    "pause_ms_total": round(self.gc_pause_ns.get(g, 0) / 1e6, 3),
+                    "collected": self.gc_collected.get(g, 0),
+                    "uncollectable": self.gc_uncollectable.get(g, 0),
+                    "p50_ms": round(self.gc_hist[g].quantile(0.50) / 1e6, 3),
+                    "p99_ms": round(self.gc_hist[g].quantile(0.99) / 1e6, 3),
+                }
+                for g in _GENS
+            }
+            recent = Histogram()
+            for r in list(self._rollups)[-6:]:
+                recent.merge(r.hist)
+            snap = {
+                "enabled": self.enabled,
+                "loop": {
+                    "ticks": self.ticks,
+                    "tick_s": self.tick_s,
+                    "laggy_ticks": self.laggy_ticks,
+                    "max_lag_ms": self.max_lag_ms,
+                    "lag_p50_ms": round(recent.quantile(0.50) / 1e6, 3),
+                    "lag_p99_ms": round(recent.quantile(0.99) / 1e6, 3),
+                    "storms": self.lag_storms,
+                    "last_storm": self.last_storm,
+                    "storm_n": self.lag_storm_n,
+                    "storm_window_s": self.lag_storm_window,
+                    "lag_hist": self.lag_hist.to_json(),
+                },
+                "gc": {
+                    "generations": gens,
+                    "pauses": sum(self.gc_pauses.values()),
+                    "pause_ms_total": round(
+                        sum(self.gc_pause_ns.values()) / 1e6, 3),
+                    "thresholds": list(gc.get_threshold()),
+                    "slow_ms": self.gc_slow_ms,
+                },
+                "block": {
+                    "block_ms": self.block_ms,
+                    "blocked_calls": self.blocked_calls,
+                    "longest_block_ms": self.longest_block_ms,
+                    "incidents": list(self.incidents),
+                },
+                "rollups": [r.row() for r in self._rollups],
+                "dumps": list(self.dumps_log),
+            }
+        # process gauges read live (cold path; one /proc scan per snapshot)
+        from rmqtt_tpu_torch.utils.sysmon import rss_mb
+
+        loop = self._loop
+        snap["proc"] = {
+            "fds": _fd_count(),
+            "threads": threading.active_count(),
+            "rss_mb": rss_mb(),
+            **({"executor": _executor_stats(loop)} if loop is not None
+               else {"executor": {"threads": 0, "queue": 0, "max_workers": 0}}),
+        }
+        return snap
+
+    @staticmethod
+    def merge_snapshots(base: dict, others: List[dict]) -> dict:
+        """Cluster merge (`/api/v1/host/sum`): counters sum, the lag
+        histograms BUCKET-MERGE like the latency surface (the whole point
+        of fixed log2 buckets), max-lag merges by max, per-node incident
+        detail stays per-node (fetch each node's `/api/v1/host`)."""
+        others = list(others)
+        lag = Histogram()
+        out = {
+            "nodes": 1 + len(others),
+            "enabled": bool(base.get("enabled", False)),
+            "loop": {"ticks": 0, "laggy_ticks": 0, "storms": 0,
+                     "max_lag_ms": 0.0},
+            "gc": {"pauses": 0, "pause_ms_total": 0.0},
+            "block": {"blocked_calls": 0, "longest_block_ms": 0.0},
+            "proc": {"fds": 0, "threads": 0, "rss_mb": 0.0},
+        }
+        for snap in [base, *others]:
+            lp = snap.get("loop") or {}
+            for k in ("ticks", "laggy_ticks", "storms"):
+                out["loop"][k] += lp.get(k, 0)
+            out["loop"]["max_lag_ms"] = max(out["loop"]["max_lag_ms"],
+                                            lp.get("max_lag_ms", 0.0))
+            if lp.get("lag_hist"):
+                lag.merge(Histogram.from_json(lp["lag_hist"]))
+            g = snap.get("gc") or {}
+            out["gc"]["pauses"] += g.get("pauses", 0)
+            out["gc"]["pause_ms_total"] = round(
+                out["gc"]["pause_ms_total"] + g.get("pause_ms_total", 0.0), 3)
+            blk = snap.get("block") or {}
+            out["block"]["blocked_calls"] += blk.get("blocked_calls", 0)
+            out["block"]["longest_block_ms"] = max(
+                out["block"]["longest_block_ms"],
+                blk.get("longest_block_ms", 0.0))
+            p = snap.get("proc") or {}
+            for k in ("fds", "threads"):
+                out["proc"][k] += p.get(k, 0)
+            out["proc"]["rss_mb"] = round(
+                out["proc"]["rss_mb"] + p.get("rss_mb", 0.0), 3)
+        out["loop"]["lag_p50_ms"] = round(lag.quantile(0.50) / 1e6, 3)
+        out["loop"]["lag_p99_ms"] = round(lag.quantile(0.99) / 1e6, 3)
+        out["loop"]["lag_hist"] = lag.to_json()
+        return out
+
+    def prometheus_lines(self, labels: str) -> List[str]:
+        """`rmqtt_host_*` exposition families (grammar-pinned by the full
+        scrape test like every other exporter)."""
+        with self._lock:
+            lag = Histogram().merge(self.lag_hist)
+            counters = [
+                ("rmqtt_host_loop_ticks_total", "counter", self.ticks),
+                ("rmqtt_host_loop_laggy_ticks_total", "counter",
+                 self.laggy_ticks),
+                ("rmqtt_host_loop_lag_storms_total", "counter",
+                 self.lag_storms),
+                ("rmqtt_host_blocked_calls_total", "counter",
+                 self.blocked_calls),
+            ]
+            gc_rows = [(g, self.gc_pauses.get(g, 0),
+                        self.gc_pause_ns.get(g, 0),
+                        self.gc_collected.get(g, 0)) for g in _GENS]
+        out: List[str] = []
+        for name, typ, val in counters:
+            out.append(f"# TYPE {name} {typ}")
+            out.append(f"{name}{{{labels}}} {val}")
+        # loop-lag histogram family, exported in seconds like the latency
+        # stages (inclusive `le` from exclusive log2 uppers, same rule)
+        metric = "rmqtt_host_loop_lag_seconds"
+        out.append(f"# TYPE {metric} histogram")
+        acc = 0
+        for i, c in enumerate(lag.counts):
+            acc += c
+            le = format((Histogram.bucket_upper(i) - 1) * 1e-9, "g")
+            out.append(f'{metric}_bucket{{{labels},le="{le}"}} {acc}')
+        out.append(f'{metric}_bucket{{{labels},le="+Inf"}} {lag.count}')
+        out.append(f"{metric}_sum{{{labels}}} {format(lag.sum * 1e-9, 'g')}")
+        out.append(f"{metric}_count{{{labels}}} {lag.count}")
+        out.append("# TYPE rmqtt_host_gc_pauses_total counter")
+        for g, pauses, _ns, _col in gc_rows:
+            out.append(
+                f'rmqtt_host_gc_pauses_total{{{labels},generation="{g}"}} '
+                f"{pauses}")
+        out.append("# TYPE rmqtt_host_gc_pause_seconds_total counter")
+        for g, _p, ns, _col in gc_rows:
+            out.append(
+                f'rmqtt_host_gc_pause_seconds_total{{{labels},'
+                f'generation="{g}"}} {format(ns * 1e-9, "g")}')
+        out.append("# TYPE rmqtt_host_gc_collected_total counter")
+        for g, _p, _ns, col in gc_rows:
+            out.append(
+                f'rmqtt_host_gc_collected_total{{{labels},generation="{g}"}} '
+                f"{col}")
+        ex = (_executor_stats(self._loop) if self._loop is not None
+              else {"threads": 0, "queue": 0, "max_workers": 0})
+        # NOTE: fd/thread gauges export via the generic Stats loop
+        # (rmqtt_host_open_fds / rmqtt_host_threads) — re-exporting them
+        # here would emit a duplicate TYPE (invalid exposition, the bug
+        # class the full-scrape test pins); only the executor gauges,
+        # which have no Stats twin, belong to this family
+        gauges = [
+            ("rmqtt_host_executor_threads", ex["threads"]),
+            ("rmqtt_host_executor_queue", ex["queue"]),
+        ]
+        for name, val in gauges:
+            out.append(f"# TYPE {name} gauge")
+            out.append(f"{name}{{{labels}}} {val}")
+        return out
+
+    # ------------------------------------------------------------- dumping
+    def dump(self, reason: str) -> dict:
+        """Freeze the host plane into one artifact dict. The telemetry
+        slow-op ring tail rides along — incidents correlate against slow
+        publishes and slo/overload transitions in ONE artifact."""
+        d = {
+            "schema": DUMP_SCHEMA,
+            "reason": reason,
+            "ts": round(time.time(), 3),
+            "snapshot": self.snapshot(),
+        }
+        tele = self.telemetry
+        if tele is not None and getattr(tele, "enabled", False):
+            d["slow_ops"] = list(tele.slow_ops)[-64:]
+        return d
+
+    def dump_to(self, path: str, reason: str) -> Optional[str]:
+        """Write a dump artifact; → the path, or None on failure (a dump
+        must never take the caller down with it)."""
+        try:
+            d = self.dump(reason)
+            dirname = os.path.dirname(path)
+            if dirname:
+                os.makedirs(dirname, exist_ok=True)
+            with open(path, "w") as f:
+                json.dump(d, f, indent=1)
+            self.last_dump = d
+            self.dumps_log.append({"reason": reason, "ts": d["ts"],
+                                   "path": path})
+            _LOG.warning("host flight recorder dumped (%s) -> %s",
+                         reason, path)
+            return path
+        except Exception as e:  # pragma: no cover - disk-full etc.
+            _LOG.warning("host flight-recorder dump failed (%s): %s",
+                         reason, e)
+            return None
+
+    def auto_dump(self, reason: str) -> None:
+        """Event-triggered dump (lag storm / blocking episode / SLO
+        BURNING-EXHAUSTED / overload CRITICAL). Rate-limited per reason
+        and OFFLOADED to a daemon thread — the triggers fire on the event
+        loop (slo/overload transitions) or the watchdog; serializing the
+        rings + a disk write there would stall the broker at its worst
+        moment. With no ``dump_dir`` the artifact stays in memory."""
+        if not self.enabled:
+            return
+        now = time.monotonic()
+        with self._lock:
+            if now - self._last_dump_mono.get(reason, -1e18) < 30.0:
+                return
+            self._last_dump_mono[reason] = now
+        try:
+            threading.Thread(target=self._auto_dump_now, args=(reason,),
+                             name="rmqtt-hostprof-dump", daemon=True).start()
+        except Exception as e:  # pragma: no cover - thread exhaustion
+            _LOG.warning("host flight-recorder auto-dump thread failed "
+                         "(%s): %s", reason, e)
+
+    def _auto_dump_now(self, reason: str) -> None:
+        if self.dump_dir:
+            path = os.path.join(
+                self.dump_dir,
+                f"hostprof_{prom_sanitize(reason)}_{int(time.time())}.json")
+            self.dump_to(path, reason)
+            return
+        self.last_dump = self.dump(reason)
+        self.dumps_log.append({"reason": reason,
+                               "ts": self.last_dump["ts"], "path": None})
+        _LOG.warning("host flight recorder dumped in memory (%s); set "
+                     "RMQTT_HOSTPROF_DIR for an on-disk artifact", reason)
+
+
+#: process-global instance — seams guard on ``HOSTPROF.enabled`` (one
+#: attribute check when off); the broker configures it from the
+#: [observability] section
+HOSTPROF = HostProfiler(
+    enabled=os.environ.get("RMQTT_HOST_PROFILE", "") == "1",
+    dump_dir=os.environ.get("RMQTT_HOSTPROF_DIR") or None,
+)

@@ -1,0 +1,729 @@
+"""Hot-key attribution plane: streaming heavy-hitter sketches.
+
+Every observability plane so far (telemetry, SLO, devprof, hostprof,
+history) reports **global aggregates** — at 10M subscriptions nobody can
+answer "*which* topic is melting the broker, *which* client is the top
+talker, *which* filter prefix is driving automaton retraces", because
+per-entity counters would be unbounded cardinality. This plane answers
+those questions in O(k) memory with streaming sketches, the structure
+the IoT-broker benchmarking literature motivates: production MQTT key
+distributions are zipf-skewed, so a tiny summary captures the keys that
+matter.
+
+Two sketches per key space, both **mergeable** (the cluster /sum path
+depends on it):
+
+- **Space-Saving top-k** (Metwally et al.): at most ``k`` tracked keys;
+  a new key evicts the current minimum and inherits its count as its
+  per-entry error bound, so every reported count ``c`` with error ``e``
+  brackets the true count in ``[c - e, c]`` and ``e <= N/k``. Two
+  summaries merge via the Agarwal et al. mergeable-summaries rule
+  (absent keys contribute the donor's floor to both count and error),
+  preserving the bracket fleet-wide.
+- **Count-Min** (Cormode/Muthukrishnan): point queries for keys that
+  fell out of the top-k, merged cell-wise. Hashing is ``zlib.crc32``
+  with per-row seeds — deliberately NOT the builtin ``hash()``, whose
+  per-process salt (PYTHONHASHSEED) would make cross-node merges
+  meaningless.
+
+Four key spaces (+ bytes and drops views): publish topics by count AND
+payload bytes, publishing clients, delivering subscriber clients, and
+first-segment/namespace filter prefixes — the future tenant key
+(ROADMAP item 6), recorded at RoutingService dispatch so automaton work
+is attributable to a prefix. Reason-labeled drops gain a hot-key
+dimension (``reason:key`` composite space). Distinct-key cardinality
+rides a linear-counting bitmap (OR-mergeable) per space.
+
+"Hot *now*", not since boot: every space keeps an epoch-rotated
+**pair** of windows (current + previous); queries merge the pair, so
+answers cover between one and two windows of history and an idle key
+ages out after two rotations.
+
+When the merged top-1 share of a space crosses ``hotkeys_alert_share``
+(the "one tenant is 40% of the broker" page), the plane lands a
+``hotkeys.alert`` row on the shared slow-op ring and fires the
+``SERVER_HOOK``-family ``SERVER_HOTKEY`` hook — transition-edged like
+the overload/SLO planes, so one hot episode is one page.
+
+House pattern: ``[observability] hotkeys*`` knobs, default ON;
+``hotkeys = false`` costs one attribute check per seam and every
+surface stays shape-stable.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import math
+import time
+import zlib
+from typing import Any, Dict, List, Optional, Tuple
+
+from rmqtt_tpu_torch.broker.hooks import HookType
+from rmqtt_tpu_torch.utils.failpoints import FAILPOINTS
+
+log = logging.getLogger("rmqtt_tpu_torch.hotkeys")
+
+SCHEMA = "rmqtt_tpu_torch.hotkeys/1"
+
+_FP_ROTATE = FAILPOINTS.register("hotkeys.rotate")
+
+#: the attribution spaces every surface iterates, in render order.
+#: topic_bytes shares the topics key space (weighted by payload size);
+#: drops is the ``reason:key`` composite the drop seams feed.
+SPACES = ("topics", "topic_bytes", "publishers", "subscribers",
+          "prefixes", "drops")
+
+#: spaces the top-1-share alert watches (byte-weighted and drop views
+#: are diagnostic, not paging signals)
+ALERT_SPACES = ("topics", "publishers", "subscribers", "prefixes")
+
+#: a window must have seen at least this many events before its top-1
+#: share can alert — a 2-event window where one key is "50%" is noise,
+#: not a noisy neighbor
+ALERT_MIN_EVENTS = 50
+
+#: entries per space exported to Prometheus (<= k by construction; the
+#: full top-k rides the JSON endpoints — the scrape stays cardinality-
+#: bounded at len(SPACES) * _EXPORT_TOP rows)
+_EXPORT_TOP = 8
+
+#: linear-counting bitmap size in bits (power of two; ~2% distinct-count
+#: error up to ~2800 distinct keys per window, saturating gracefully)
+_LC_BITS = 4096
+
+#: per-row CMS hash seeds are derived from this odd constant; crc32
+#: accepts an initial value, giving d independent-enough hash functions
+_SEED_MULT = 0x9E3779B9
+
+#: hot-path seams only APPEND to pending buffers; a buffer reaching this
+#: size drains inline, bounding memory between rotator ticks
+_PENDING_MAX = 16384
+
+
+def first_segment(topic: str) -> str:
+    """The namespace/tenant key: everything before the first ``/``.
+    A leading-slash topic's first segment is empty — map it to ``/`` so
+    the sketch key is never the empty string."""
+    seg = topic.split("/", 1)[0]
+    return seg if seg else "/"
+
+
+class SpaceSaving:
+    """Bounded top-k with per-entry error: ``counts[key]`` overestimates
+    the true count by at most ``errs[key]`` (the evicted minimum the
+    entry inherited), and any untracked key's true count is <= the
+    current floor. O(k) on the eviction path only; hits are one dict op."""
+
+    __slots__ = ("k", "counts", "errs")
+
+    def __init__(self, k: int) -> None:
+        self.k = max(1, int(k))
+        self.counts: Dict[str, int] = {}
+        self.errs: Dict[str, int] = {}
+
+    def offer(self, key: str, inc: int = 1) -> None:
+        c = self.counts
+        v = c.get(key)
+        if v is not None:
+            c[key] = v + inc
+            return
+        if len(c) < self.k:
+            c[key] = inc
+            self.errs[key] = 0
+            return
+        victim = min(c, key=c.get)
+        floor = c.pop(victim)
+        self.errs.pop(victim, None)
+        c[key] = floor + inc
+        self.errs[key] = floor
+
+    def floor(self) -> int:
+        """Upper bound on any UNTRACKED key's count (0 until full)."""
+        if len(self.counts) < self.k:
+            return 0
+        return min(self.counts.values()) if self.counts else 0
+
+    def entries(self) -> List[dict]:
+        return [
+            {"key": k, "count": c, "err": self.errs.get(k, 0)}
+            for k, c in sorted(self.counts.items(),
+                               key=lambda kv: kv[1], reverse=True)
+        ]
+
+
+def merge_topk(a: List[dict], a_floor: int, b: List[dict], b_floor: int,
+               k: int) -> Tuple[List[dict], int]:
+    """Mergeable-summaries rule over entry lists: a key absent from one
+    side contributes that side's floor to BOTH count and error (its true
+    count there is somewhere in [0, floor]), so the merged bracket
+    ``[count - err, count]`` still contains the true combined count.
+    Returns the top-k of the union plus the merged floor."""
+    cand: Dict[str, List[int]] = {}
+    for ent in a:
+        cand[ent["key"]] = [int(ent["count"]), int(ent.get("err", 0))]
+    for ent in b:
+        cur = cand.get(ent["key"])
+        if cur is None:
+            cand[ent["key"]] = [int(ent["count"]) + a_floor,
+                                int(ent.get("err", 0)) + a_floor]
+        else:
+            cur[0] += int(ent["count"])
+            cur[1] += int(ent.get("err", 0))
+    b_keys = {ent["key"] for ent in b}
+    for key, cur in cand.items():
+        if key not in b_keys:
+            cur[0] += b_floor
+            cur[1] += b_floor
+    top = sorted(cand.items(), key=lambda kv: kv[1][0], reverse=True)[:k]
+    return ([{"key": key, "count": c, "err": e} for key, (c, e) in top],
+            a_floor + b_floor)
+
+
+class CountMin:
+    """d x w counter matrix; point estimate = min over rows (always an
+    overestimate, off by at most eN/w with probability 1 - delta^d).
+    Deterministic crc32-per-row hashing keeps two nodes' sketches
+    cell-compatible; merge is element-wise addition."""
+
+    __slots__ = ("width", "depth", "rows")
+
+    def __init__(self, width: int, depth: int) -> None:
+        self.width = max(8, int(width))
+        self.depth = max(1, int(depth))
+        self.rows: List[List[int]] = [
+            [0] * self.width for _ in range(self.depth)]
+
+    def add_data(self, data: bytes, inc: int = 1) -> None:
+        w = self.width
+        for r, row in enumerate(self.rows):
+            row[zlib.crc32(data, (_SEED_MULT * (r + 1)) & 0xFFFFFFFF) % w] \
+                += inc
+
+    def query(self, key: str) -> int:
+        data = key.encode("utf-8", "surrogatepass")
+        w = self.width
+        return min(
+            row[zlib.crc32(data, (_SEED_MULT * (r + 1)) & 0xFFFFFFFF) % w]
+            for r, row in enumerate(self.rows))
+
+    def merge(self, other: "CountMin") -> None:
+        if other.width != self.width or other.depth != self.depth:
+            raise ValueError("CMS shape mismatch")
+        for row, orow in zip(self.rows, other.rows):
+            for i, v in enumerate(orow):
+                if v:
+                    row[i] += v
+
+
+class _Window:
+    """One epoch of one key space: Space-Saving + (optional) Count-Min +
+    linear-counting distinct bitmap + event total."""
+
+    __slots__ = ("ss", "cms", "bitmap", "total", "t0")
+
+    def __init__(self, k: int, width: int, depth: int, now: float,
+                 cms: bool = True) -> None:
+        self.ss = SpaceSaving(k)
+        self.cms = CountMin(width, depth) if cms else None
+        self.bitmap = bytearray(_LC_BITS >> 3)
+        self.total = 0
+        self.t0 = now
+
+    def offer(self, key: str, inc: int = 1) -> None:
+        self.total += inc
+        self.ss.offer(key, inc)
+        data = key.encode("utf-8", "surrogatepass")
+        if self.cms is not None:
+            self.cms.add_data(data, inc)
+        h = zlib.crc32(data) % _LC_BITS
+        self.bitmap[h >> 3] |= 1 << (h & 7)
+
+    def distinct_est(self) -> int:
+        zeros = sum(_ZERO_BITS[b] for b in self.bitmap)
+        if zeros == 0:  # saturated: the estimator diverges; report cap
+            return _LC_BITS
+        return int(round(-_LC_BITS * math.log(zeros / _LC_BITS)))
+
+
+#: zero-bit count per byte value, for the linear-counting estimator
+_ZERO_BITS = [8 - bin(i).count("1") for i in range(256)]
+
+
+def _union_distinct(a: bytearray, b: bytearray) -> int:
+    zeros = sum(_ZERO_BITS[x | y] for x, y in zip(a, b))
+    if zeros == 0:
+        return _LC_BITS
+    return int(round(-_LC_BITS * math.log(zeros / _LC_BITS)))
+
+
+class _Space:
+    """One attribution dimension: an epoch-rotated pair of windows.
+    Queries merge (cur, prev) so the answer always covers at least one
+    full window — "hot now", with keys aging out after two rotations."""
+
+    __slots__ = ("name", "k", "width", "depth", "has_cms",
+                 "cur", "prev", "alerting")
+
+    def __init__(self, name: str, k: int, width: int, depth: int,
+                 now: float, cms: bool = True) -> None:
+        self.name = name
+        self.k = k
+        self.width = width
+        self.depth = depth
+        self.has_cms = cms
+        self.cur = _Window(k, width, depth, now, cms)
+        self.prev = _Window(k, width, depth, now, cms)
+        self.alerting = False
+
+    def offer(self, key: str, inc: int = 1) -> None:
+        self.cur.offer(key, inc)
+
+    def rotate(self, now: float) -> None:
+        self.prev = self.cur
+        self.cur = _Window(self.k, self.width, self.depth, now,
+                           self.has_cms)
+
+    def total(self) -> int:
+        return self.cur.total + self.prev.total
+
+    def merged_top(self) -> Tuple[List[dict], int]:
+        return merge_topk(self.cur.ss.entries(), self.cur.ss.floor(),
+                          self.prev.ss.entries(), self.prev.ss.floor(),
+                          self.k)
+
+    def point(self, key: str) -> int:
+        """CMS point estimate over the live pair (windows see disjoint
+        sub-streams, so the upper-bound estimates add)."""
+        if not self.has_cms:
+            return 0
+        return self.cur.cms.query(key) + self.prev.cms.query(key)
+
+    def view(self) -> dict:
+        top, floor = self.merged_top()
+        total = self.total()
+        for ent in top:
+            ent["share"] = round(ent["count"] / total, 4) if total else 0.0
+        return {
+            "total": total,
+            "distinct_est": _union_distinct(self.cur.bitmap,
+                                            self.prev.bitmap),
+            "floor": floor,
+            "top": top,
+            "alerting": self.alerting,
+        }
+
+
+class HotkeysService:
+    """The attribution plane: four-plus-two sketched key spaces, window
+    rotation, the top-1-share alert, and every admin surface. Constructed
+    unconditionally by ``ServerContext`` (shape-stable surfaces); the
+    hot-path seams guard on one ``enabled`` attribute check."""
+
+    def __init__(self, ctx, cfg) -> None:
+        self.ctx = ctx
+        self.enabled = bool(cfg.hotkeys_enable)
+        self.k = max(8, int(cfg.hotkeys_k))
+        self.width = max(8, int(cfg.hotkeys_cms_width))
+        self.depth = max(1, int(cfg.hotkeys_cms_depth))
+        self.window_s = max(0.05, float(cfg.hotkeys_window_s))
+        self.alert_share = min(1.0, max(0.01,
+                                        float(cfg.hotkeys_alert_share)))
+        now = time.time()
+        # the byte-weighted and drop views skip the CMS (same key space
+        # as topics / diagnostic-only): halves the per-publish hash work
+        self.spaces: Dict[str, _Space] = {
+            name: _Space(name, self.k, self.width, self.depth, now,
+                         cms=name not in ("topic_bytes", "drops"))
+            for name in SPACES
+        }
+        self.rotations = 0
+        self.alerts_total = 0
+        self.alerts_by_space: Dict[str, int] = {s: 0 for s in ALERT_SPACES}
+        self._task: Optional[asyncio.Task] = None
+        # pending seam events, folded into the sketches by drain()
+        self._pend_pub: List[Tuple[str, str, int]] = []
+        self._pend_disp: List[str] = []
+        self._pend_sub: List[str] = []
+        self._pend_drop: List[str] = []
+
+    # ------------------------------------------------------------ hot seams
+    # Each seam is one method call behind one `enabled` check at the call
+    # site, and the body is ONE list append — the crc32/dict sketch work
+    # runs in drain(), amortized per DISTINCT buffered key (zipf-skewed
+    # traffic collapses thousands of events into tens of offers). Every
+    # query and the rotator tick drain first, so answers stay exact.
+
+    def on_publish(self, topic: str, client_id: str, nbytes: int) -> None:
+        """Session publish ingress: topic by count AND bytes, publisher."""
+        buf = self._pend_pub
+        buf.append((topic, client_id, nbytes))
+        if len(buf) >= _PENDING_MAX:
+            self.drain()
+
+    def on_dispatch(self, topic: str) -> None:
+        """RoutingService dispatch: attribute automaton work to the
+        first-segment/namespace prefix (the future tenant key)."""
+        buf = self._pend_disp
+        buf.append(topic)
+        if len(buf) >= _PENDING_MAX:
+            self.drain()
+
+    def on_dispatch_items(self, items) -> None:
+        """Bulk dispatch seam: one call per routed batch of
+        ``(fid, topic)`` items (what ``RoutingService._dispatch_one``
+        hands the fabric) instead of one per item."""
+        buf = self._pend_disp
+        buf.extend(t for _f, t in items)
+        if len(buf) >= _PENDING_MAX:
+            self.drain()
+
+    def on_deliver(self, client_id: str) -> None:
+        """Delivery send: the subscriber actually receiving bytes."""
+        buf = self._pend_sub
+        buf.append(client_id)
+        if len(buf) >= _PENDING_MAX:
+            self.drain()
+
+    def on_drop(self, reason: str, key: str) -> None:
+        """Reason-labeled drop sites gain a hot-key dimension: which
+        client/topic is behind the queue_full (etc.) counters."""
+        buf = self._pend_drop
+        buf.append(reason + ":" + key)
+        if len(buf) >= _PENDING_MAX:
+            self.drain()
+
+    def drain(self) -> None:
+        """Fold the buffered seam events into the sketches, aggregating
+        per distinct key first so the hash work scales with key
+        cardinality, not event volume."""
+        sp = self.spaces
+        pubs, self._pend_pub = self._pend_pub, []
+        if pubs:
+            tc: Dict[str, int] = {}
+            tb: Dict[str, int] = {}
+            pc: Dict[str, int] = {}
+            for topic, cid, nbytes in pubs:
+                tc[topic] = tc.get(topic, 0) + 1
+                if nbytes > 0:
+                    tb[topic] = tb.get(topic, 0) + nbytes
+                pc[cid] = pc.get(cid, 0) + 1
+            offer = sp["topics"].offer
+            for key, n in tc.items():
+                offer(key, n)
+            offer = sp["topic_bytes"].offer
+            for key, n in tb.items():
+                offer(key, n)
+            offer = sp["publishers"].offer
+            for key, n in pc.items():
+                offer(key, n)
+        disp, self._pend_disp = self._pend_disp, []
+        if disp:
+            fc: Dict[str, int] = {}
+            for topic in disp:
+                fc[topic] = fc.get(topic, 0) + 1
+            pf: Dict[str, int] = {}
+            for topic, n in fc.items():
+                seg = first_segment(topic)
+                pf[seg] = pf.get(seg, 0) + n
+            offer = sp["prefixes"].offer
+            for key, n in pf.items():
+                offer(key, n)
+        subs, self._pend_sub = self._pend_sub, []
+        if subs:
+            sc: Dict[str, int] = {}
+            for cid in subs:
+                sc[cid] = sc.get(cid, 0) + 1
+            offer = sp["subscribers"].offer
+            for key, n in sc.items():
+                offer(key, n)
+        drops, self._pend_drop = self._pend_drop, []
+        if drops:
+            dc: Dict[str, int] = {}
+            for key in drops:
+                dc[key] = dc.get(key, 0) + 1
+            offer = sp["drops"].offer
+            for key, n in dc.items():
+                offer(key, n)
+
+    # ------------------------------------------------------------ lifecycle
+    def start(self) -> None:
+        """Arm the rotation/alert task on the RUNNING loop (sync, like
+        every plane armed from ``ServerContext.start``)."""
+        if not self.enabled:
+            return
+        if self._task is not None and not self._task.done():
+            return
+        self._task = asyncio.get_running_loop().create_task(
+            self._run(), name="hotkeys-rotator")
+
+    async def stop(self) -> None:
+        task, self._task = self._task, None
+        if task is not None:
+            task.cancel()
+            try:
+                await task
+            except (asyncio.CancelledError, Exception):
+                pass
+
+    async def _run(self) -> None:
+        # alert check at half-window cadence (an episode is noticed
+        # within window_s/2), rotation on the full window
+        half = self.window_s / 2.0
+        while True:
+            await asyncio.sleep(half)
+            try:
+                self.check_alerts()
+                if time.time() - self.spaces["topics"].cur.t0 \
+                        >= self.window_s:
+                    self.rotate()
+            except Exception:
+                log.exception("hotkeys rotation failed")
+
+    def rotate(self) -> None:
+        """Epoch rotation: cur -> prev, fresh cur. Public and
+        synchronous so tests and drills drive epochs directly."""
+        self.drain()
+        if _FP_ROTATE.action is not None:  # chaos seam: a provokable
+            _FP_ROTATE.fire_sync()         # rotation stall/fault
+        now = time.time()
+        for space in self.spaces.values():
+            space.rotate(now)
+        self.rotations += 1
+
+    # -------------------------------------------------------------- alerts
+    def check_alerts(self) -> List[dict]:
+        """Transition-edged top-1-share watchdog over the alert spaces:
+        entering an episode lands ONE ``hotkeys.alert`` slow-ring row and
+        ONE ``SERVER_HOTKEY`` hook fire; the flag clears when the share
+        falls back under the threshold. Returns the rows fired (tests)."""
+        fired: List[dict] = []
+        if not self.enabled:
+            return fired
+        self.drain()
+        for name in ALERT_SPACES:
+            space = self.spaces[name]
+            total = space.total()
+            if total < ALERT_MIN_EVENTS:
+                space.alerting = False
+                continue
+            top, _floor = space.merged_top()
+            if not top:
+                space.alerting = False
+                continue
+            share = top[0]["count"] / total
+            if share < self.alert_share:
+                space.alerting = False
+                continue
+            if space.alerting:
+                continue  # already inside this episode
+            space.alerting = True
+            self.alerts_total += 1
+            self.alerts_by_space[name] = self.alerts_by_space.get(name, 0) + 1
+            row = {
+                "space": name,
+                "key": top[0]["key"],
+                "share": round(share, 4),
+                "count": top[0]["count"],
+                "total": total,
+                "threshold": self.alert_share,
+            }
+            fired.append(row)
+            self._fire(name, row)
+        return fired
+
+    def _fire(self, space: str, row: dict) -> None:
+        """Slow-op ring row + SERVER_HOTKEY hook — the exact transition
+        idiom of slo.py/overload.py/history.py, so hot-key episodes join
+        the shared correlation timeline ops_doctor renders."""
+        tele = getattr(self.ctx, "telemetry", None)
+        if tele is not None and getattr(tele, "enabled", False):
+            tele.slow_ops.append({
+                "op": "hotkeys.alert", "ms": 0.0,
+                "ts": round(time.time(), 3),
+                "detail": dict(row),
+            })
+        try:
+            loop = asyncio.get_running_loop()
+        except RuntimeError:
+            return  # check_alerts() driven synchronously in tests
+        loop.create_task(self.ctx.hooks.fire(
+            HookType.SERVER_HOTKEY, space, row["key"], row))
+
+    # ------------------------------------------------------------- queries
+    def point(self, space: str, key: str) -> int:
+        """CMS point estimate for any key, tracked or not (0 for spaces
+        without a CMS and unknown space names — never raises)."""
+        self.drain()
+        sp = self.spaces.get(space)
+        return sp.point(key) if sp is not None else 0
+
+    def snapshot(self) -> dict:
+        """The `/api/v1/hotkeys` body. Shape-stable when disabled: same
+        keys, empty tops, zero totals."""
+        self.drain()
+        return {
+            "schema": SCHEMA,
+            "enabled": self.enabled,
+            "node": getattr(self.ctx.cfg, "node_id", 0),
+            "k": self.k,
+            "window_s": self.window_s,
+            "alert_share": self.alert_share,
+            "rotations": self.rotations,
+            "alerts_total": self.alerts_total,
+            "spaces": {name: self.spaces[name].view() for name in SPACES},
+        }
+
+    @staticmethod
+    def merge_snapshots(base: dict, others: List[dict]) -> dict:
+        """Cluster merge (`/api/v1/hotkeys/sum`): per space, fold the
+        node top-k lists under the mergeable-summaries rule (floors
+        substitute for absent keys, so the error bracket survives the
+        merge); totals and alert counters sum; distinct estimates sum
+        (an upper bound — per-node bitmaps are not shipped)."""
+        snaps = [base, *list(others)]
+        k = max(int(s.get("k") or 1) for s in snaps)
+        spaces: Dict[str, Any] = {}
+        for name in SPACES:
+            top: List[dict] = []
+            floor = 0
+            total = 0
+            distinct = 0
+            alerting = False
+            for snap in snaps:
+                sv = (snap.get("spaces") or {}).get(name) or {}
+                top, floor = merge_topk(
+                    top, floor,
+                    list(sv.get("top") or ()), int(sv.get("floor") or 0),
+                    k)
+                total += int(sv.get("total") or 0)
+                distinct += int(sv.get("distinct_est") or 0)
+                alerting = alerting or bool(sv.get("alerting"))
+            for ent in top:
+                ent["share"] = (round(ent["count"] / total, 4)
+                                if total else 0.0)
+            spaces[name] = {
+                "total": total,
+                "distinct_est": distinct,
+                "floor": floor,
+                "top": top,
+                "alerting": alerting,
+            }
+        return {
+            "schema": SCHEMA,
+            "nodes": len(snaps),
+            "enabled": any(s.get("enabled") for s in snaps),
+            "k": k,
+            "rotations": sum(int(s.get("rotations") or 0) for s in snaps),
+            "alerts_total": sum(int(s.get("alerts_total") or 0)
+                                for s in snaps),
+            "spaces": spaces,
+        }
+
+    # ------------------------------------------------------------- surfaces
+    def stats_block(self) -> Dict[str, int]:
+        """Small gauge block for ``ServerContext.stats()``. Tracked-key
+        counts and event counters only — the top-1 SHARE deliberately
+        stays off this surface (/stats/sum SUMS plain gauges; a summed
+        ratio is a lie) and rides prometheus_lines/history instead."""
+        self.drain()
+        sp = self.spaces
+        return {
+            "hotkeys_topics_tracked": len(sp["topics"].cur.ss.counts),
+            "hotkeys_publishers_tracked": len(sp["publishers"].cur.ss.counts),
+            "hotkeys_subscribers_tracked": len(
+                sp["subscribers"].cur.ss.counts),
+            "hotkeys_prefixes_tracked": len(sp["prefixes"].cur.ss.counts),
+            "hotkeys_rotations": self.rotations,
+            "hotkeys_alerts": self.alerts_total,
+        }
+
+    def history_summary(self) -> Dict[str, float]:
+        """Per-sample block for the history collector: top-1/top-8 share
+        + distinct estimate per alert space, plus the headline
+        ``top1_share`` (the max across spaces — the earliest
+        noisy-neighbor signal the anomaly annotator watches)."""
+        self.drain()
+        out: Dict[str, float] = {}
+        headline = 0.0
+        for name in ALERT_SPACES:
+            space = self.spaces[name]
+            total = space.total()
+            top, _floor = space.merged_top()
+            top1 = (top[0]["count"] / total) if total and top else 0.0
+            top8 = (sum(e["count"] for e in top[:8]) / total
+                    if total and top else 0.0)
+            out[f"{name}.top1_share"] = round(top1, 4)
+            out[f"{name}.top8_share"] = round(min(top8, 1.0), 4)
+            out[f"{name}.distinct"] = _union_distinct(
+                space.cur.bitmap, space.prev.bitmap)
+            headline = max(headline, top1)
+        out["top1_share"] = round(headline, 4)
+        return out
+
+    def prometheus_lines(self, labels: str) -> List[str]:
+        """Bounded exposition: at most ``_EXPORT_TOP`` keys per space in
+        the ``rmqtt_hotkeys_topk`` gauge family (<= k by construction),
+        label values escaped per the exposition grammar and truncated —
+        topic/client names are attacker-chosen bytes."""
+        self.drain()
+        out = ["# TYPE rmqtt_hotkeys_topk gauge"]
+        for name in SPACES:
+            view = self.spaces[name].view()
+            for ent in view["top"][:_EXPORT_TOP]:
+                out.append(
+                    f'rmqtt_hotkeys_topk{{{labels},space="{name}",'
+                    f'key="{_label_escape(ent["key"])}"}} {ent["count"]}')
+        out.append("# TYPE rmqtt_hotkeys_top1_share gauge")
+        for name in ALERT_SPACES:
+            space = self.spaces[name]
+            total = space.total()
+            top, _floor = space.merged_top()
+            share = (top[0]["count"] / total) if total and top else 0.0
+            out.append(
+                f'rmqtt_hotkeys_top1_share{{{labels},space="{name}"}} '
+                f"{round(share, 4)}")
+        out.append("# TYPE rmqtt_hotkeys_distinct_keys gauge")
+        for name in ALERT_SPACES:
+            space = self.spaces[name]
+            out.append(
+                f'rmqtt_hotkeys_distinct_keys{{{labels},space="{name}"}} '
+                f"{_union_distinct(space.cur.bitmap, space.prev.bitmap)}")
+        out.append("# TYPE rmqtt_hotkeys_alerts_total counter")
+        for name in ALERT_SPACES:
+            out.append(
+                f'rmqtt_hotkeys_alerts_total{{{labels},space="{name}"}} '
+                f"{self.alerts_by_space.get(name, 0)}")
+        out.append("# TYPE rmqtt_hotkeys_rotations_total counter")
+        out.append(
+            f"rmqtt_hotkeys_rotations_total{{{labels}}} {self.rotations}")
+        return out
+
+    def sys_payloads(self) -> Dict[str, dict]:
+        """The three ``$SYS/brokers/<n>/hotkeys/{topics,clients,
+        prefixes}`` bodies (top-8 each, bounded like the scrape)."""
+        self.drain()
+
+        def brief(name: str) -> dict:
+            v = self.spaces[name].view()
+            return {"total": v["total"], "distinct_est": v["distinct_est"],
+                    "top": v["top"][:_EXPORT_TOP]}
+
+        return {
+            "topics": {"by_count": brief("topics"),
+                       "by_bytes": brief("topic_bytes")},
+            "clients": {"publishers": brief("publishers"),
+                        "subscribers": brief("subscribers")},
+            "prefixes": {**brief("prefixes"),
+                         "drops": brief("drops")},
+        }
+
+
+def _label_escape(value: str, max_len: int = 120) -> str:
+    """Prometheus label-value escaping (backslash, quote, newline) +
+    length bound. Sketch keys are raw wire bytes (topics, client ids) —
+    they must never be able to break the exposition grammar."""
+    if len(value) > max_len:
+        value = value[:max_len] + "..."
+    return (value.replace("\\", "\\\\").replace('"', '\\"')
+            .replace("\n", "\\n"))

@@ -1,0 +1,973 @@
+"""HTTP management API.
+
+Mirrors the reference's `rmqtt-http-api` plugin surface
+(`rmqtt-plugins/rmqtt-http-api/src/api.rs:73-203`): REST endpoints for
+brokers/nodes/health/clients/subscriptions/routes/stats/metrics, publish and
+subscribe management calls, plus a Prometheus text endpoint
+(`src/prome.rs:16-300`). Implemented on asyncio + http.server-free manual
+HTTP/1.1 (no external deps), sharing the broker's ServerContext.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import logging
+import time
+from typing import Any, Dict, List, Optional, Tuple
+from urllib.parse import parse_qs, unquote, urlparse
+
+from rmqtt_tpu_torch import __version__
+from rmqtt_tpu_torch.broker.types import Message, now
+from rmqtt_tpu_torch.cluster import messages as M
+from rmqtt_tpu_torch.router.base import Id
+
+log = logging.getLogger("rmqtt_tpu_torch.http")
+
+
+def sysinfo() -> dict:
+    """Host load/memory figures (node.rs sysinfo surface)."""
+    import os
+
+    out: dict = {}
+    try:
+        l1, l5, l15 = os.getloadavg()
+        out["load1"], out["load5"], out["load15"] = round(l1, 2), round(l5, 2), round(l15, 2)
+    except (OSError, AttributeError):  # AttributeError: not on Windows
+        pass
+    from rmqtt_tpu_torch.utils.sysmon import rss_mb
+
+    mb = rss_mb()
+    if mb:
+        out["memory_rss_kb"] = int(mb * 1024)
+    out["cpus"] = os.cpu_count()
+    return out
+
+
+def client_info(s) -> dict:
+    """Serialized client/session row (api.rs clients payload shape)."""
+    return {
+        "clientid": s.client_id,
+        "node_id": s.id.node_id,
+        "connected": s.connected,
+        "protocol": s.connect_info.protocol,
+        "username": s.connect_info.username,
+        "keepalive": s.limits.keepalive,
+        "clean_start": s.clean_start,
+        "session_expiry": s.limits.session_expiry,
+        "subscriptions": len(s.subscriptions),
+        "mqueue_len": len(s.deliver_queue),
+        "inflight": len(s.out_inflight),
+        "created_at": s.created_at,
+        "ip": s.connect_info.remote_addr[0] if s.connect_info.remote_addr else None,
+    }
+
+
+def subscription_rows(ctx, limit: int) -> list:
+    out = []
+    for s in ctx.registry.sessions():
+        for tf, opts in s.subscriptions.items():
+            if len(out) >= limit:
+                return out
+            out.append({
+                "client_id": s.client_id, "node_id": s.id.node_id,
+                "topic_filter": tf, "qos": opts.qos, "share": opts.shared_group,
+            })
+    return out
+
+
+def subscription_search(ctx, params: dict) -> list:
+    """Filtered subscription query (reference SubsSearchParams/Result,
+    types.rs:2014 + grpc.rs SubscriptionsSearch): match on client id,
+    exact topic filter, QoS and share group; bounded by ``_limit``."""
+    limit = int(params.get("_limit", 100))
+    want_cid = params.get("clientid")
+    want_tf = params.get("topic")
+    want_qos = params.get("qos")
+    want_share = params.get("share")
+    out = []
+    for s in ctx.registry.sessions():
+        if want_cid is not None and s.client_id != want_cid:
+            continue
+        for tf, opts in s.subscriptions.items():
+            if len(out) >= limit:
+                return out
+            if want_tf is not None and tf != want_tf:
+                continue
+            if want_qos is not None and opts.qos != int(want_qos):
+                continue
+            if want_share is not None and opts.shared_group != want_share:
+                continue
+            out.append({
+                "client_id": s.client_id, "node_id": s.id.node_id,
+                "topic_filter": tf, "qos": opts.qos, "share": opts.shared_group,
+            })
+    return out
+
+
+def routes_by_topic(ctx, topic: str) -> list:
+    """Distinct (topic_filter, node) routes a publish to ``topic`` would
+    take (reference RoutesGetBy, grpc.rs:529 + router.rs `gets` by topic):
+    a trie match with subscriber fan-out collapsed to route edges."""
+    relmap, shared = ctx.router.matches_raw(None, topic)
+    edges = set()
+    for node_id, rels in relmap.items():
+        for rel in rels:
+            edges.add((rel.topic_filter, rel.id.node_id))
+    for (_group, tf), cands in shared.items():
+        for sid, _opts, _online in cands:
+            edges.add((tf, sid.node_id))
+    return [{"topic": tf, "node_id": nid} for tf, nid in sorted(edges)]
+
+
+async def _cluster_merge(ctx, mtype: str, body, extract) -> list:
+    """Fan an admin query out to peers and merge rows (the reference's
+    http-api gRPC broadcast, rmqtt-http-api/src/handler.rs)."""
+    cluster = getattr(ctx.registry, "cluster", None)
+    rows: list = []
+    if cluster is not None and cluster.peers:
+        for _nid, reply in await cluster.bcast.join_all_call(mtype, body):
+            if not isinstance(reply, Exception):
+                rows.extend(extract(reply))
+    return rows
+
+
+class HttpApi:
+    def __init__(self, ctx, host: str = "127.0.0.1", port: int = 6060) -> None:
+        self.ctx = ctx
+        self.host = host
+        self.port = port
+        self._server: Optional[asyncio.base_events.Server] = None
+        # uptime base: MONOTONIC, re-anchored at server start — wall clock
+        # (time.time) is NTP-step sensitive and a module-import stamp
+        # predates the server; both /brokers and /nodes read this
+        self._started_mono = time.monotonic()
+
+    @property
+    def bound_port(self) -> int:
+        return self._server.sockets[0].getsockname()[1]
+
+    def _uptime(self) -> float:
+        return round(time.monotonic() - self._started_mono, 1)
+
+    async def start(self) -> None:
+        self._started_mono = time.monotonic()
+        self._server = await asyncio.start_server(self._on_conn, self.host, self.port)
+        log.info("http api on %s:%s", self.host, self.bound_port)
+
+    async def stop(self) -> None:
+        if self._server is not None:
+            self._server.close()
+            await self._server.wait_closed()
+
+    # ------------------------------------------------------------- plumbing
+    async def _on_conn(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter):
+        try:
+            while True:
+                req = await asyncio.wait_for(reader.readline(), 30.0)
+                if not req:
+                    return
+                try:
+                    method, target, _proto = req.decode("latin1").split()
+                except ValueError:
+                    return
+                headers: Dict[str, str] = {}
+                while True:
+                    line = await reader.readline()
+                    if line in (b"\r\n", b"\n", b""):
+                        break
+                    k, _, v = line.decode("latin1").partition(":")
+                    headers[k.strip().lower()] = v.strip()
+                body = b""
+                length = int(headers.get("content-length", 0))
+                if length:
+                    body = await reader.readexactly(length)
+                status, payload, ctype = await self._route(method, target, body)
+                data = payload if isinstance(payload, bytes) else json.dumps(payload).encode()
+                writer.write(
+                    b"HTTP/1.1 %d %s\r\nContent-Type: %s\r\nContent-Length: %d\r\n"
+                    b"Connection: keep-alive\r\n\r\n"
+                    % (status, b"OK" if status < 400 else b"ERR", ctype.encode(), len(data))
+                )
+                writer.write(data)
+                await writer.drain()
+        except (ConnectionError, asyncio.TimeoutError, asyncio.IncompleteReadError):
+            pass
+        finally:
+            try:
+                writer.close()
+            except Exception:
+                pass
+
+    async def _route(self, method: str, target: str, body: bytes) -> Tuple[int, Any, str]:
+        url = urlparse(target)
+        raw_path = unquote(url.path)
+        path = raw_path.rstrip("/")
+        q = parse_qs(url.query)
+        try:
+            return await self._dispatch(method, path, q, body, raw_path)
+        except (KeyError, ValueError, TypeError) as e:
+            return 400, {"error": f"bad request: {e}"}, "application/json"
+        except Exception as e:
+            log.exception("http api error on %s", path)
+            return 500, {"error": str(e)}, "application/json"
+
+    # ------------------------------------------------------------ endpoints
+    async def _dispatch(self, method: str, path: str, q, body: bytes,
+                        raw_path: str = "") -> Tuple[int, Any, str]:
+        ctx = self.ctx
+        J = "application/json"
+        if path in ("", "/index.html", "/dashboard"):  # note: "/" rstrips to ""
+            # static admin dashboard (api.rs:73-203 serves one embedded)
+            return 200, _DASHBOARD_HTML, "text/html; charset=utf-8"
+        if path in ("/api/v1", "/api/v1/"):
+            return 200, [
+                "/api/v1/brokers", "/api/v1/nodes", "/api/v1/health",
+                "/api/v1/clients", "/api/v1/clients/{clientid}",
+                "/api/v1/clients/{clientid}/online", "/api/v1/clients/offlines",
+                "/api/v1/subscriptions", "/api/v1/subscriptions/search",
+                "/api/v1/subscriptions/{clientid}",
+                "/api/v1/routes", "/api/v1/routes/{topic}",
+                "/api/v1/stats", "/api/v1/stats/sum",
+                "/api/v1/metrics", "/api/v1/metrics/sum",
+                "/api/v1/latency", "/api/v1/latency/sum",
+                "/api/v1/slo", "/api/v1/slo/sum",
+                "/api/v1/device", "/api/v1/device/sum",
+                "/api/v1/host", "/api/v1/host/sum",
+                "/api/v1/history", "/api/v1/history/sum",
+                "/api/v1/hotkeys", "/api/v1/hotkeys/sum",
+                "/api/v1/overload", "/api/v1/fabric",
+                "/api/v1/durability",
+                "/api/v1/autotune", "/api/v1/autotune/sum",
+                "/api/v1/failpoints", "/api/v1/routing/failover",
+                "/api/v1/routing/knobs",
+                "/api/v1/traces", "/api/v1/traces/slow",
+                "/api/v1/traces/{trace_id}",
+                "/api/v1/plugins", "/api/v1/plugins/{plugin}",
+                "/api/v1/mqtt/publish", "/api/v1/mqtt/subscribe",
+                "/api/v1/mqtt/unsubscribe", "/metrics/prometheus",
+            ], J
+        if path == "/api/v1/brokers":
+            return 200, [self._broker_info()], J
+        if path == "/api/v1/nodes":
+            return 200, [self._node_info()], J
+        if path == "/api/v1/health":
+            return 200, {"status": "ok", "node_id": ctx.node_id}, J
+        if path == "/api/v1/clients":
+            limit = int(q.get("_limit", ["100"])[0])
+            rows = [client_info(s) for s in list(ctx.registry.sessions())[:limit]]
+            rows += await _cluster_merge(
+                ctx, M.CLIENTS_GET, {"limit": limit}, lambda r: r.get("clients", [])
+            )
+            return 200, rows[: limit], J
+        if path == "/api/v1/clients/offlines":
+            # offline (disconnected but persistent) sessions, cluster-wide;
+            # DELETE purges them everywhere (api.rs clients/offlines). NOTE:
+            # like the reference's route table, the literal segment wins
+            # over a client actually named "offlines".
+            offl = [s for s in ctx.registry.sessions() if not s.connected]
+            if method == "DELETE":
+                purged = len(offl)
+                for s in offl:
+                    await ctx.registry.terminate(s, "api-purge-offline")
+                purged += sum(await _cluster_merge(
+                    ctx, M.DATA, {"what": "purge_offlines"},
+                    lambda r: [int(r.get("purged", 0))],
+                ))
+                return 200, {"purged": purged}, J
+            rows = [client_info(s) for s in offl]
+            rows += await _cluster_merge(
+                ctx, M.DATA, {"what": "offlines"},
+                lambda r: r.get("clients", []),
+            )
+            return 200, rows, J
+        if (path.endswith("/online")
+                and len(path) > len("/api/v1/clients/") + len("/online")
+                and path.startswith("/api/v1/clients/")):
+            # liveness incl. cross-node (api.rs clients/{id}/online; the
+            # Online RPC of grpc.rs:506-535); a client literally named
+            # "online" (empty cid here) falls through to the info endpoint
+            cid = path[len("/api/v1/clients/"):-len("/online")]
+            s = ctx.registry.get(cid)
+            online = bool(s and s.connected)
+            if not online:
+                for r in await _cluster_merge(
+                    ctx, M.ONLINE, {"client_id": cid},
+                    lambda r: [r.get("online", False)],
+                ):
+                    online = online or bool(r)
+            return 200, {"clientid": cid, "online": online}, J
+        if path.startswith("/api/v1/clients/"):
+            cid = path.rsplit("/", 1)[1]
+            s = ctx.registry.get(cid)
+            if s is None:
+                return 404, {"error": "not found"}, J
+            if method == "DELETE":  # kick (api.rs clients delete)
+                if s.state is not None:
+                    await s.state.close(kicked=True)
+                else:
+                    await ctx.registry.terminate(s, "api-kick")
+                return 200, {"kicked": cid}, J
+            return 200, client_info(s), J
+        if path == "/api/v1/subscriptions/search":
+            params = {k: v[0] for k, v in q.items()}
+            rows = subscription_search(ctx, params)
+            rows += await _cluster_merge(
+                ctx, M.SUBSCRIPTIONS_SEARCH, params,
+                lambda r: r.get("subscriptions", []),
+            )
+            return 200, rows[: int(params.get("_limit", 100))], J
+        if path == "/api/v1/subscriptions":
+            limit = int(q.get("_limit", ["100"])[0])
+            rows = subscription_rows(ctx, limit)
+            rows += await _cluster_merge(
+                ctx, M.SUBSCRIPTIONS_GET, {"limit": limit},
+                lambda r: r.get("subscriptions", []),
+            )
+            return 200, rows[: limit], J
+        if path.startswith("/api/v1/subscriptions/"):
+            # one client's subscriptions, cluster-wide (api.rs
+            # subscriptions/{clientid} via SubscriptionsSearch)
+            cid = path[len("/api/v1/subscriptions/"):]
+            rows = subscription_search(ctx, {"clientid": cid})
+            rows += await _cluster_merge(
+                ctx, M.SUBSCRIPTIONS_SEARCH, {"clientid": cid},
+                lambda r: r.get("subscriptions", []),
+            )
+            return 200, rows, J
+        if path.startswith("/api/v1/routes/"):
+            # routes a publish to this topic would take (api.rs routes/{topic});
+            # use the un-rstripped path — trailing slashes are distinct
+            # (empty) MQTT topic levels
+            topic = (raw_path or path)[len("/api/v1/routes/"):]
+            rows = routes_by_topic(ctx, topic)
+            rows += await _cluster_merge(
+                ctx, M.ROUTES_GET_BY, {"topic": topic},
+                lambda r: r.get("routes", []),
+            )
+            dedup = {(r["topic"], r["node_id"]) for r in rows}
+            return 200, [{"topic": t, "node_id": n} for t, n in sorted(dedup)], J
+        if path == "/api/v1/routes":
+            limit = int(q.get("_limit", ["100"])[0])
+            rows = ctx.router.gets(limit)
+            rows += await _cluster_merge(
+                ctx, M.ROUTES_GET, {"limit": limit}, lambda r: r.get("routes", [])
+            )
+            return 200, rows[: limit], J
+        if path == "/api/v1/stats/sum":
+            # cluster-merged gauge totals (api.rs stats/sum; counter.rs
+            # merge — all our exposed gauges are Sum-mode counts). "nodes"
+            # counts the nodes actually summed, not the configured peers —
+            # a down peer contributes nothing to either number.
+            total = dict(ctx.stats().to_json())
+            replies = await _cluster_merge(
+                ctx, M.STATS_GET, {}, lambda r: [r] if "stats" in r else []
+            )
+            for rec in replies:
+                for k, v in rec.get("stats", {}).items():
+                    if isinstance(v, (int, float)):
+                        total[k] = total.get(k, 0) + v
+            nodes = 1 + len(replies)
+            # *_ema and *_ms gauges are average-mode (counter.rs
+            # StatsMergeMode::Avg) — batch-size EMAs and latency
+            # percentiles are never summable counts
+            for k in list(total):
+                if (k.endswith("_ema") or k.endswith("_ms")) and nodes > 1:
+                    total[k] = round(total[k] / nodes, 3)
+            return 200, {"nodes": nodes, "stats": total}, J
+        if path == "/api/v1/stats":
+            nodes = [{"node": ctx.node_id, "stats": ctx.stats().to_json()}]
+            nodes += await _cluster_merge(
+                ctx, M.STATS_GET, {}, lambda r: [r] if "stats" in r else []
+            )
+            return 200, nodes, J
+        if path == "/api/v1/metrics/sum":
+            total = dict(ctx.metrics.to_json())
+            for rec in await _cluster_merge(
+                ctx, M.DATA, {"what": "metrics"},
+                lambda r: [r.get("metrics", {})],
+            ):
+                for k, v in rec.items():
+                    if isinstance(v, (int, float)):
+                        total[k] = total.get(k, 0) + v
+            return 200, {"metrics": total}, J
+        if path == "/api/v1/metrics":
+            return 200, {"node": ctx.node_id, "metrics": ctx.metrics.to_json()}, J
+        if path == "/api/v1/latency/sum":
+            # cluster-wide latency: per-node log2 histograms merge by
+            # BUCKET-WISE ADDITION (the design property fixed buckets buy —
+            # order statistics from different nodes could never merge)
+            from rmqtt_tpu_torch.broker.telemetry import Telemetry
+            local = ctx.telemetry.snapshot()
+            peers = await _cluster_merge(
+                ctx, M.DATA, {"what": "latency"},
+                lambda r: [r["latency"]] if "latency" in r else [],
+            )
+            return 200, Telemetry.merge_snapshots(local, peers), J
+        if path == "/api/v1/latency":
+            # stage histograms + slow-op ring (broker/telemetry.py);
+            # shape-stable with telemetry disabled (zero-count stages)
+            return 200, {"node": ctx.node_id, **ctx.telemetry.snapshot()}, J
+        if path == "/api/v1/device/sum":
+            # cluster-wide device plane (broker/devprof.py): counters sum,
+            # pad waste recomputes from the summed totals, HBM bytes sum to
+            # a fleet total (what=device DATA query per peer)
+            from rmqtt_tpu_torch.broker.devprof import DEVPROF, DeviceProfiler
+
+            local = DEVPROF.snapshot()
+            peers = await _cluster_merge(
+                ctx, M.DATA, {"what": "device"},
+                lambda r: [r["device"]] if "device" in r else [],
+            )
+            return 200, DeviceProfiler.merge_snapshots(local, peers), J
+        if path == "/api/v1/device":
+            # device-plane profiler + flight recorder (broker/devprof.py):
+            # compile/retrace registry, HBM occupancy model vs live arrays,
+            # dispatch rollup time series; ?flight=1 appends the raw ring.
+            # Shape-stable with the profiler disabled (zeros everywhere).
+            from rmqtt_tpu_torch.broker.devprof import DEVPROF
+
+            body_out = {"node": ctx.node_id, **DEVPROF.snapshot()}
+            if q.get("flight", ["0"])[0] not in ("0", "", "false"):
+                body_out["flight"] = DEVPROF.flight()
+            return 200, body_out, J
+        if path == "/api/v1/host/sum":
+            # cluster-wide host plane (broker/hostprof.py): counters sum,
+            # the loop-lag histograms BUCKET-MERGE like the latency
+            # surface (what=host DATA query per peer); incident detail
+            # stays per-node on each /api/v1/host
+            from rmqtt_tpu_torch.broker.hostprof import HOSTPROF, HostProfiler
+
+            local = HOSTPROF.snapshot()
+            peers = await _cluster_merge(
+                ctx, M.DATA, {"what": "host"},
+                lambda r: [r["host"]] if "host" in r else [],
+            )
+            return 200, HostProfiler.merge_snapshots(local, peers), J
+        if path == "/api/v1/host":
+            # host-plane profiler (broker/hostprof.py): event-loop lag,
+            # GC pause forensics, blocking-call incidents (frame stacks),
+            # process rollups. Shape-stable with the profiler disabled.
+            from rmqtt_tpu_torch.broker.hostprof import HOSTPROF
+
+            return 200, {"node": ctx.node_id, **HOSTPROF.snapshot()}, J
+        if path == "/api/v1/history/sum":
+            # cluster-wide telemetry timeline (broker/history.py): node
+            # timelines align on step buckets (counters sum, quantile/rate
+            # series average, sparse histograms key-add, states take the
+            # worst); anomalies concatenate per-node (what=history DATA
+            # query per peer, forwarding the range/step params)
+            from rmqtt_tpu_torch.broker.history import HistoryService
+
+            params = {"series": q.get("series", [None])[0],
+                      "from": q.get("from", [None])[0],
+                      "to": q.get("to", [None])[0],
+                      "step": q.get("step", [None])[0]}
+            local = ctx.history.query(
+                series=params["series"], frm=params["from"],
+                to=params["to"], step=params["step"])
+            peers = await _cluster_merge(
+                ctx, M.DATA, {"what": "history", **params},
+                lambda r: [r["history"]] if "history" in r else [],
+            )
+            return 200, HistoryService.merge_snapshots(local, peers), J
+        if path == "/api/v1/history":
+            # telemetry-history range query (broker/history.py): the
+            # cross-plane sample timeline + anomaly annotations, filtered
+            # to [from, to], projected to ?series= (comma-separated) and
+            # step-downsampled by ?step= seconds. Shape-stable disabled.
+            return 200, ctx.history.query(
+                series=q.get("series", [None])[0],
+                frm=q.get("from", [None])[0],
+                to=q.get("to", [None])[0],
+                step=q.get("step", [None])[0]), J
+        if path == "/api/v1/hotkeys/sum":
+            # fleet-wide hot keys (broker/hotkeys.py): per-space top-k
+            # lists fold under the mergeable-summaries rule (a key absent
+            # from one node contributes that node's floor to count AND
+            # error, keeping the bracket honest); totals/counters sum
+            # (what=hotkeys DATA query per peer, both cluster modes)
+            from rmqtt_tpu_torch.broker.hotkeys import HotkeysService
+
+            local = ctx.hotkeys.snapshot()
+            peers = await _cluster_merge(
+                ctx, M.DATA, {"what": "hotkeys"},
+                lambda r: [r["hotkeys"]] if "hotkeys" in r else [],
+            )
+            return 200, HotkeysService.merge_snapshots(local, peers), J
+        if path == "/api/v1/hotkeys":
+            # hot-key attribution (broker/hotkeys.py): Space-Saving top-k
+            # per key space (topics by count/bytes, publishing clients,
+            # delivering subscribers, filter prefixes, reason:key drops)
+            # over the live decay-window pair. Shape-stable disabled.
+            return 200, ctx.hotkeys.snapshot(), J
+        if path == "/api/v1/slo/sum":
+            # cluster-wide SLO: per-objective (good, total) pairs sum
+            # across nodes (cumulative + both windows), burn rates
+            # recomputed from the merged sums, states merged by worst
+            from rmqtt_tpu_torch.broker.slo import SloEngine
+
+            local = ctx.slo.snapshot()
+            peers = await _cluster_merge(
+                ctx, M.DATA, {"what": "slo"},
+                lambda r: [r["slo"]] if "slo" in r else [],
+            )
+            return 200, SloEngine.merge_snapshots(local, peers), J
+        if path == "/api/v1/slo":
+            # live error budgets + burn rates (broker/slo.py); shape-stable
+            # with the engine disabled (objectives listed, zero data)
+            return 200, {"node": ctx.node_id, **ctx.slo.snapshot()}, J
+        if path == "/api/v1/cluster":
+            # membership failure-detector view + anti-entropy state + the
+            # convergence digests (cluster/membership.py); shape-stable on
+            # single-node brokers ({"enabled": false} + fence clock)
+            cluster = getattr(ctx.registry, "cluster", None)
+            out = {"node": ctx.node_id,
+                   "enabled": cluster is not None,
+                   "fence_epoch": getattr(ctx.registry, "fence_epoch", 0)}
+            if cluster is not None:
+                out.update(cluster.snapshot())
+            return 200, out, J
+        if path == "/api/v1/overload":
+            # overload-controller state (broker/overload.py): watermark
+            # state + signals, admission counters, shed totals, breakers;
+            # shape-stable when the subsystem is disabled
+            return 200, {"node": ctx.node_id, **ctx.overload.snapshot()}, J
+        if path == "/api/v1/durability":
+            # durability plane (broker/durability.py): journal health,
+            # group-commit counters, last recovery's replay counts and the
+            # retained digest (the crash-torture oracle's comparison
+            # point); shape-stable {"enabled": false} while disabled
+            d = ctx.durability
+            body_out = d.snapshot() if d is not None else {"enabled": False}
+            return 200, {"node": ctx.node_id, **body_out}, J
+        if path == "/api/v1/failpoints":
+            # fault-injection registry (utils/failpoints.py). GET lists every
+            # site's action + trigger counters; PUT reconfigures sites live
+            # ({"site": "spec", ...} — "off" disarms) so chaos drills flip
+            # faults against a running broker without a restart.
+            from rmqtt_tpu_torch.utils.failpoints import FAILPOINTS
+
+            if method == "PUT":
+                req = json.loads(body or b"{}")
+                if not isinstance(req, dict):
+                    return 400, {"error": "body must be {site: spec, ...}"}, J
+                FAILPOINTS.configure({str(k): str(v) for k, v in req.items()})
+                log.warning("failpoints reconfigured via http: %s",
+                            {str(k): str(v) for k, v in req.items()})
+            return 200, {"node": ctx.node_id,
+                         "failpoints": FAILPOINTS.snapshot()}, J
+        if path == "/api/v1/fabric":
+            # intra-node routing fabric state (broker/fabric.py): role,
+            # link health, directory epoch/size, submit/fan-out counters;
+            # shape-stable {"enabled": false} without a fabric
+            fab = ctx.fabric
+            body_out = (fab.snapshot() if fab is not None
+                        else {"enabled": False})
+            return 200, {"node": ctx.node_id, **body_out}, J
+        if path == "/api/v1/autotune/sum":
+            # cluster-wide autotuner counters (broker/autotune.py):
+            # decisions/commits/rollbacks sum, state merges by worst;
+            # journals stay per-node (what=autotune DATA query per peer)
+            from rmqtt_tpu_torch.broker.autotune import AutotuneService
+
+            local = ctx.autotune.snapshot()
+            peers = await _cluster_merge(
+                ctx, M.DATA, {"what": "autotune"},
+                lambda r: [r["autotune"]] if "autotune" in r else [],
+            )
+            return 200, AutotuneService.merge_snapshots(local, peers), J
+        if path == "/api/v1/autotune":
+            # device-plane autotuner (broker/autotune.py): state, canary
+            # in flight, bounded decision journal (before/after metrics
+            # per knob change) and the live knob table. Shape-stable with
+            # the plane disabled (zeros + empty journal).
+            return 200, {"node": ctx.node_id, **ctx.autotune.snapshot()}, J
+        if path == "/api/v1/routing/knobs":
+            # the consolidated runtime knob registry (broker/knobs.py):
+            # every device/batcher kill-switch with its live value and
+            # provenance (default | env | conf | autotune)
+            return 200, {"node": ctx.node_id,
+                         "knobs": ctx.knobs.snapshot()}, J
+        if path == "/api/v1/routing/failover":
+            # device-plane failover state (broker/failover.py): breaker,
+            # host-routed counters, reason-labeled failures; a static
+            # "unavailable" shape for routers with no host fallback
+            fo = ctx.routing.failover
+            body_out = (fo.snapshot() if fo is not None
+                        else {"state": "unavailable", "state_value": 0})
+            return 200, {"node": ctx.node_id, **body_out}, J
+        if path == "/api/v1/traces/slow":
+            # slow traces cluster-wide (broker/tracing.py): per-node
+            # summaries merged + deduped by trace id
+            return 200, await self._trace_listing(q, slow=True), J
+        if path.startswith("/api/v1/traces/"):
+            # one trace, STITCHED cluster-wide: this node's spans plus every
+            # peer's (what=traces DATA query) merged on the shared timeline
+            # — retrievable from any node that can reach the others
+            from rmqtt_tpu_torch.broker.tracing import Tracer
+
+            tid = path[len("/api/v1/traces/"):]
+            parts = []
+            local = ctx.tracer.get(tid)
+            if local is not None:
+                parts.append(local)
+            parts += await _cluster_merge(
+                ctx, M.DATA, {"what": "traces", "id": tid},
+                lambda r: [r["trace"]] if r.get("trace") else [],
+            )
+            if not parts:
+                return 404, {"error": "no such trace"}, J
+            return 200, Tracer.merge_traces(parts), J
+        if path == "/api/v1/traces":
+            return 200, await self._trace_listing(q, slow=False), J
+        if path.startswith("/api/v1/plugins/"):
+            # single-plugin control (api.rs plugins/{plugin}[/load|/unload|
+            # /config/reload])
+            plugins = getattr(ctx, "plugins", None)
+            if plugins is None:
+                return 404, {"error": "no plugin manager"}, J
+            rest = path[len("/api/v1/plugins/"):]
+            name, _, action = rest.partition("/")
+            p = plugins.get(name)
+            if p is None:
+                return 404, {"error": f"no plugin {name!r}"}, J
+            if action == "" and method == "GET":
+                return 200, next(
+                    d for d in plugins.describe() if d["name"] == name), J
+            if action == "load" and method == "PUT":
+                return 200, {"loaded": await plugins.start(name)}, J
+            if action == "unload" and method == "PUT":
+                return 200, {"unloaded": await plugins.stop(name)}, J
+            if action == "config" and method == "GET":
+                return 200, dict(p.config), J
+            if action == "config/reload" and method == "PUT":
+                if not hasattr(p, "load_config"):
+                    return 501, {"error": "plugin has no config reload"}, J
+                await p.load_config()
+                return 200, {"reloaded": name}, J
+            return 405, {"error": "unsupported plugin action"}, J
+        if path == "/api/v1/plugins":
+            plugins = getattr(ctx, "plugins", None)
+            return 200, (plugins.describe() if plugins else []), J
+        if path == "/api/v1/mqtt/publish" and method == "POST":
+            req = json.loads(body or b"{}")
+            payload = req.get("payload", "")
+            msg = Message(
+                topic=req["topic"],
+                payload=payload.encode() if isinstance(payload, str) else bytes(payload),
+                qos=int(req.get("qos", 0)),
+                retain=bool(req.get("retain", False)),
+                from_id=Id(ctx.node_id, req.get("clientid", "http-api")),
+            )
+            if msg.retain:
+                ctx.retain.set(msg.topic, msg)
+            n = await ctx.registry.forwards(msg)
+            return 200, {"delivered_to": n}, J
+        if path == "/api/v1/mqtt/subscribe" and method == "POST":
+            # management-initiated subscribe on behalf of a client (api.rs)
+            req = json.loads(body or b"{}")
+            s = ctx.registry.get(req["clientid"])
+            if s is None:
+                return 404, {"error": "no such client"}, J
+            from rmqtt_tpu_torch.core.topic import filter_valid, parse_shared
+            from rmqtt_tpu_torch.router.base import SubscriptionOptions
+
+            tf = req["topic"]
+            group, stripped = parse_shared(tf)
+            if not filter_valid(stripped):
+                return 400, {"error": "invalid filter"}, J
+            await ctx.registry.subscribe(
+                s, tf, stripped,
+                SubscriptionOptions(qos=int(req.get("qos", 0)), shared_group=group),
+            )
+            return 200, {"subscribed": tf}, J
+        if path == "/api/v1/mqtt/unsubscribe" and method == "POST":
+            req = json.loads(body or b"{}")
+            s = ctx.registry.get(req["clientid"])
+            if s is None:
+                return 404, {"error": "no such client"}, J
+            ok = await ctx.registry.unsubscribe(s, req["topic"])
+            return 200, {"unsubscribed": bool(ok)}, J
+        if path == "/metrics/prometheus":
+            return 200, self._prometheus().encode(), "text/plain; version=0.0.4"
+        return 404, {"error": "no such endpoint"}, J
+
+    # --------------------------------------------------------------- bodies
+    async def _trace_listing(self, q, slow: bool) -> dict:
+        """Shared body of /api/v1/traces[/slow]: local summaries + every
+        peer's (what=traces DATA query), deduped by trace id so a trace
+        whose spans live on several nodes lists once."""
+        from rmqtt_tpu_torch.broker.tracing import Tracer
+
+        ctx = self.ctx
+        limit = int(q.get("_limit", ["50"])[0])
+        rows = (ctx.tracer.slow_traces(limit) if slow
+                else ctx.tracer.recent(limit))
+        body = {"what": "traces", "limit": limit}
+        if slow:
+            body["slow"] = True
+        rows += await _cluster_merge(
+            ctx, M.DATA, body, lambda r: r.get("traces", []))
+        return {"node": ctx.node_id, **ctx.tracer.snapshot(),
+                "traces": Tracer.dedup_summaries(rows)[:limit]}
+
+    def _broker_info(self) -> dict:
+        return {
+            "node_id": self.ctx.node_id,
+            "version": __version__,
+            "uptime": self._uptime(),
+            "sysdescr": "rmqtt_tpu_torch broker",
+            "datetime": time.strftime("%Y-%m-%d %H:%M:%S"),
+        }
+
+    def _node_info(self) -> dict:
+        stats = self.ctx.stats()
+        return {
+            "node_id": self.ctx.node_id,
+            "connections": stats.connections,
+            "sessions": stats.sessions,
+            "subscriptions": stats.subscriptions,
+            "retaineds": stats.retaineds,
+            "version": __version__,
+            "uptime": self._uptime(),
+            **sysinfo(),
+        }
+
+    def _prometheus(self) -> str:
+        import sys
+
+        from rmqtt_tpu_torch.broker.telemetry import prom_sanitize as sanitize
+
+        stats = self.ctx.stats().to_json()
+        lines = []
+        labels = f'node="{self.ctx.node_id}"'
+        # process-level gauges: uptime (monotonic base) + a build/version
+        # info gauge (the conventional constant-1 "info" metric, so
+        # dashboards can join on version/python labels)
+        lines.append("# TYPE rmqtt_uptime_seconds gauge")
+        lines.append(f"rmqtt_uptime_seconds{{{labels}}} {self._uptime()}")
+        pyver = "%d.%d.%d" % sys.version_info[:3]
+        lines.append("# TYPE rmqtt_build_info gauge")
+        lines.append(
+            f'rmqtt_build_info{{{labels},version="{__version__}",'
+            f'python="{pyver}"}} 1')
+        for k, v in stats.items():
+            name = "rmqtt_" + sanitize(k)
+            lines.append(f"# TYPE {name} gauge")
+            lines.append(f"{name}{{{labels}}} {v}")
+        for k, v in self.ctx.metrics.to_json().items():
+            # monotonic counters take the conventional `_total` suffix
+            # (exposition format: counter sample names end in _total)
+            name = "rmqtt_" + sanitize(k) + "_total"
+            lines.append(f"# TYPE {name} counter")
+            lines.append(f"{name}{{{labels}}} {v}")
+        # failpoint trigger counters (utils/failpoints.py): one site-labeled
+        # family so chaos drills can assert exactly which seams fired
+        from rmqtt_tpu_torch.utils.failpoints import FAILPOINTS
+
+        lines.append("# TYPE rmqtt_failpoint_triggers_total counter")
+        for site, snap in FAILPOINTS.snapshot().items():
+            lines.append(
+                f'rmqtt_failpoint_triggers_total{{{labels},'
+                f'site="{site}"}} {snap["triggers"]}')
+        # device-plane profiler families (broker/devprof.py): jit traces /
+        # cache hits / retrace storms / pad waste / modeled HBM bytes
+        from rmqtt_tpu_torch.broker.devprof import DEVPROF
+
+        lines.extend(DEVPROF.prometheus_lines(labels))
+        # host-plane profiler families (broker/hostprof.py): loop-lag
+        # histogram, laggy-tick/storm/blocked counters, gc per-generation
+        # pause counters, fd/thread/executor gauges
+        from rmqtt_tpu_torch.broker.hostprof import HOSTPROF
+
+        lines.extend(HOSTPROF.prometheus_lines(labels))
+        # autotuner families (broker/autotune.py): enabled/state gauges +
+        # canary/commit/rollback/hold counters
+        lines.extend(self.ctx.autotune.prometheus_lines(labels))
+        # latency stage histograms (_bucket/_sum/_count families)
+        lines.extend(self.ctx.telemetry.prometheus_lines(labels))
+        # SLO gauges + good/bad event counters (broker/slo.py)
+        lines.extend(self.ctx.slo.prometheus_lines(labels))
+        # telemetry-history counters (broker/history.py): samples recorded
+        # + per-tracked-series anomaly breaches
+        lines.extend(self.ctx.history.prometheus_lines(labels))
+        # hot-key attribution families (broker/hotkeys.py): bounded
+        # space+key-labeled top-k gauges, per-space top-1 share /
+        # distinct estimates, alert + rotation counters
+        lines.extend(self.ctx.hotkeys.prometheus_lines(labels))
+        # tracing counters + span-store gauge (broker/tracing.py)
+        lines.extend(self.ctx.tracer.prometheus_lines(labels))
+        return "\n".join(lines) + "\n"
+
+
+# Embedded admin dashboard (the reference's http-api serves a static UI,
+# api.rs:73-203). Single file, no external assets: polls the JSON API.
+_DASHBOARD_HTML = b"""<!doctype html>
+<html><head><meta charset="utf-8"><title>rmqtt_tpu_torch dashboard</title>
+<style>
+ body{font-family:system-ui,sans-serif;margin:1.5rem;background:#fafafa;color:#222}
+ h1{font-size:1.2rem} h2{font-size:1rem;margin:1.2rem 0 .4rem}
+ .cards{display:flex;flex-wrap:wrap;gap:.6rem}
+ .card{background:#fff;border:1px solid #ddd;border-radius:6px;padding:.6rem 1rem;min-width:9rem}
+ .card .v{font-size:1.4rem;font-weight:600} .card .k{color:#666;font-size:.8rem}
+ table{border-collapse:collapse;background:#fff;width:100%}
+ th,td{border:1px solid #ddd;padding:.3rem .6rem;font-size:.85rem;text-align:left}
+ th{background:#f0f0f0} #err{color:#b00020}
+</style></head><body>
+<h1>rmqtt_tpu_torch broker <span id="node"></span></h1><div id="err"></div>
+<div class="cards" id="stats"></div>
+<h2>SLO</h2><div class="cards" id="slo"></div>
+<h2>Overload</h2><div class="cards" id="overload"></div>
+<h2>Device plane</h2><div class="cards" id="device"></div>
+<h2>Autotune</h2><div class="cards" id="autotune"></div>
+<h2>Host plane</h2><div class="cards" id="host"></div>
+<h2>Hot keys</h2><div class="cards" id="hotkeys"></div>
+<h2>Latency</h2><div class="cards" id="latency"></div>
+<h2>Clients</h2><table id="clients"><thead><tr>
+<th>client id</th><th>node</th><th>ip</th><th>protocol</th><th>connected</th>
+<th>subs</th><th>queue</th><th>inflight</th></tr></thead><tbody></tbody></table>
+<h2>Subscriptions</h2><table id="subs"><thead><tr>
+<th>client id</th><th>topic filter</th><th>qos</th></tr></thead><tbody></tbody></table>
+<script>
+const KEYS=["connections","sessions","subscriptions","subscriptions_shared",
+ "topics","routes","retaineds","delayed_publishs","message_queues",
+ "out_inflights","in_inflights","handshakings","handshakings_active",
+ "handshakings_rate","forwards","message_storages",
+ "routing_cache_size","routing_cache_hits","routing_cache_misses",
+ "routing_cache_invalidations","routing_cache_evictions",
+ "routing_cache_door_rejects","routing_uploads","routing_delta_uploads",
+ "routing_upload_bytes","routing_compactions","routing_compact_ms_total",
+ "routing_cand_cache_invalidations","routing_fused_batches",
+ "routing_stage_encode_ms_total","routing_stage_dispatch_ms_total",
+ "routing_stage_fetch_ms_total","routing_stage_decode_ms_total",
+ "fabric_batches","fabric_items","fabric_bytes_out","fabric_deliver_in",
+ "fabric_deliver_out","fabric_kicks_o1","fabric_kick_rpcs",
+ "fabric_plan_hits","fabric_owner_reconnects","fabric_submit_fallbacks",
+ "directory_epoch",
+ "cluster_peers_alive","cluster_peers_suspect","cluster_peers_dead",
+ "cluster_membership_transitions","cluster_retain_sync_dropped",
+ "cluster_fence_kicks","cluster_anti_entropy_runs",
+ "routing_stage_fabric_submit_ms_total",
+ "routing_stage_fabric_fanout_ms_total",
+ "durability_journal_len","durability_appends","durability_commits",
+ "durability_compactions","durability_recovered_retained",
+ "durability_recovered_sessions","durability_recovered_subs",
+ "durability_recovered_inflight","durability_recovery_ms",
+ "device_jit_traces","device_jit_cache_hits","device_retrace_storms",
+ "device_hbm_modeled_mb",
+ "host_loop_laggy_ticks","host_lag_storms","host_blocked_calls",
+ "host_gc_pauses","host_gc_pause_ms_total","host_open_fds","host_threads",
+ "net_egress_frames","net_egress_flushes","net_egress_bytes",
+ "net_egress_coalesced","net_egress_drains",
+ "net_wheel_sessions","net_wheel_timeouts",
+ "routing_failover_state",
+ "routing_failovers","routing_switchbacks","routing_failover_host_routed",
+ "routing_device_failures","slo_state","slo_transitions",
+ "history_samples","history_anomalies","history_segments",
+ "history_recovered_rows",
+ "hotkeys_topics_tracked","hotkeys_publishers_tracked",
+ "hotkeys_subscribers_tracked","hotkeys_prefixes_tracked",
+ "hotkeys_rotations","hotkeys_alerts","rss_mb"];
+// latency cards: stage -> quantiles shown (fed by /api/v1/latency;
+// histogram units are ns, rendered as ms)
+const LAT_STAGES=[["publish.e2e",["p50","p99"]],["routing.match",["p50","p99"]],
+ ["routing.queue_wait",["p50","p99"]],["publish.cache_hit",["p99"]],
+ ["publish.cache_miss",["p99"]],["connect.handshake",["p99"]]];
+const ms=ns=>ns>=1e6?(ns/1e6).toFixed(1)+"ms":(ns/1e3).toFixed(0)+"us";
+async function j(p){const r=await fetch(p);if(!r.ok)throw new Error(p+": "+r.status);return r.json()}
+// client ids / topics / usernames are ATTACKER-CHOSEN (any MQTT client);
+// everything interpolated into markup must be escaped
+const esc=v=>String(v??"").replace(/[&<>"']/g,
+ ch=>({"&":"&amp;","<":"&lt;",">":"&gt;",'"':"&quot;","'":"&#39;"}[ch]));
+async function tick(){
+ try{
+  const stats=await j("/api/v1/stats");
+  const mine=stats[0]||{};
+  document.getElementById("node").textContent="(node "+(mine.node??"?")+")";
+  const agg={};for(const n of stats){for(const k of KEYS){agg[k]=(agg[k]||0)+((n.stats||{})[k]||0)}}
+  document.getElementById("stats").innerHTML=KEYS.map(k=>
+   `<div class="card"><div class="v">${esc(agg[k]??0)}</div><div class="k">${esc(k)}</div></div>`).join("");
+  const clients=await j("/api/v1/clients?_limit=50");
+  document.querySelector("#clients tbody").innerHTML=clients.map(c=>
+   `<tr><td>${esc(c.clientid)}</td><td>${esc(c.node_id)}</td><td>${esc(c.ip)}</td><td>${esc(c.protocol)}</td>
+    <td>${esc(c.connected)}</td><td>${esc(c.subscriptions)}</td><td>${esc(c.mqueue_len)}</td><td>${esc(c.inflight)}</td></tr>`).join("");
+  const subs=await j("/api/v1/subscriptions?_limit=50");
+  document.querySelector("#subs tbody").innerHTML=subs.map(s=>
+   `<tr><td>${esc(s.client_id)}</td><td>${esc(s.topic_filter)}</td><td>${esc(s.qos)}</td></tr>`).join("");
+  const slo=await j("/api/v1/slo");
+  document.getElementById("slo").innerHTML=
+   `<div class="card"><div class="v"${slo.state_value?' style="color:#b00020"':''}>${esc(slo.state)}</div><div class="k">slo${slo.enabled?"":" (disabled)"}</div></div>`+
+   (slo.objectives||[]).map(o=>
+    `<div class="card"><div class="v"${o.state_value?' style="color:#b00020"':''}>${esc((o.budget_remaining*100).toFixed(1))}%</div>
+     <div class="k">${esc(o.name)} budget (burn ${esc(o.fast.burn_rate)}/${esc(o.slow.burn_rate)})</div></div>`).join("");
+  const ov=await j("/api/v1/overload");
+  const shed=ov.shed||{},adm=ov.admission||{},brks=ov.breakers||{};
+  document.getElementById("overload").innerHTML=
+   `<div class="card"><div class="v"${ov.state_value?' style="color:#b00020"':''}>${esc(ov.state)}</div><div class="k">state${ov.enabled?"":" (disabled)"}</div></div>`+
+   `<div class="card"><div class="v">${esc(ov.transitions??0)}</div><div class="k">transitions</div></div>`+
+   `<div class="card"><div class="v">${esc(shed.qos0??0)}</div><div class="k">shed qos0</div></div>`+
+   `<div class="card"><div class="v">${esc(shed.rate_limited??0)}</div><div class="k">rate limited</div></div>`+
+   `<div class="card"><div class="v">${esc(shed.circuit_open??0)}</div><div class="k">circuit-open drops</div></div>`+
+   `<div class="card"><div class="v">${esc(adm.connect_refused??0)}</div><div class="k">connects refused</div></div>`+
+   Object.entries(brks).map(([n,b])=>
+    `<div class="card"><div class="v"${b.state!=="closed"?' style="color:#b00020"':''}>${esc(b.state)}</div><div class="k">breaker ${esc(n)}</div></div>`).join("");
+  const dev=await j("/api/v1/device");
+  const dc=dev.compile||{},dd=dev.dispatch||{},dh=dev.hbm||{};
+  document.getElementById("device").innerHTML=
+   (dev.enabled?"":`<div class="card"><div class="v">off</div><div class="k">device profiler disabled</div></div>`)+
+   `<div class="card"><div class="v">${esc(dc.traces??0)}</div><div class="k">jit traces</div></div>`+
+   `<div class="card"><div class="v">${esc(dc.cache_hits??0)}</div><div class="k">compile cache hits</div></div>`+
+   `<div class="card"><div class="v"${(dc.storms??0)?' style="color:#b00020"':''}>${esc(dc.storms??0)}</div><div class="k">retrace storms</div></div>`+
+   `<div class="card"><div class="v">${esc(dd.dispatches??0)}</div><div class="k">device dispatches</div></div>`+
+   `<div class="card"><div class="v">${esc(((dd.pad_waste??0)*100).toFixed(1))}%</div><div class="k">pad waste (floor ${esc(dd.pad_floor??1)})</div></div>`+
+   `<div class="card"><div class="v">${esc(dd.p99_ms??0)}ms</div><div class="k">dispatch p99 (recent)</div></div>`+
+   `<div class="card"><div class="v">${esc(((dh.modeled_bytes??0)/1048576).toFixed(1))}MB</div><div class="k">HBM modeled (${esc(dh.layout??"n/a")})</div></div>`+
+   `<div class="card"><div class="v">${esc(dd.fused??0)}/${esc(dd.fallback??0)}</div><div class="k">fused / fallback</div></div>`;
+  const at=await j("/api/v1/autotune");
+  const lastd=(at.journal||[]).slice(-1)[0];
+  document.getElementById("autotune").innerHTML=
+   `<div class="card"><div class="v"${at.state_value===2?' style="color:#b00020"':''}>${esc(at.state)}</div><div class="k">autotune${at.enabled?"":" (disabled)"}</div></div>`+
+   `<div class="card"><div class="v">${esc(at.decisions??0)}</div><div class="k">decisions</div></div>`+
+   `<div class="card"><div class="v">${esc(at.commits??0)}</div><div class="k">commits</div></div>`+
+   `<div class="card"><div class="v"${(at.rollbacks??0)?' style="color:#b00020"':''}>${esc(at.rollbacks??0)}</div><div class="k">rollbacks (aborts ${esc(at.aborts??0)})</div></div>`+
+   (lastd?`<div class="card"><div class="v">${esc(lastd.knob)} ${esc(lastd.from)}&rarr;${esc(lastd.to)}</div><div class="k">last: ${esc(lastd.phase)} (${esc(lastd.reason)})</div></div>`:"")+
+   (at.knobs||[]).map(k=>
+    `<div class="card"><div class="v">${esc(k.value)}</div><div class="k">knob ${esc(k.name)} (${esc(k.source)})</div></div>`).join("");
+  const host=await j("/api/v1/host");
+  const hl=host.loop||{},hg=host.gc||{},hb=host.block||{},hp=host.proc||{};
+  const hex=(hp.executor||{});
+  document.getElementById("host").innerHTML=
+   (host.enabled?"":`<div class="card"><div class="v">off</div><div class="k">host profiler disabled</div></div>`)+
+   `<div class="card"><div class="v">${esc(hl.lag_p99_ms??0)}ms</div><div class="k">loop lag p99 (recent)</div></div>`+
+   `<div class="card"><div class="v"${(hl.storms??0)?' style="color:#b00020"':''}>${esc(hl.storms??0)}</div><div class="k">lag storms (laggy ${esc(hl.laggy_ticks??0)})</div></div>`+
+   `<div class="card"><div class="v"${(hb.blocked_calls??0)?' style="color:#b00020"':''}>${esc(hb.blocked_calls??0)}</div><div class="k">blocked calls (worst ${esc(hb.longest_block_ms??0)}ms)</div></div>`+
+   `<div class="card"><div class="v">${esc(hg.pauses??0)}</div><div class="k">gc pauses (${esc(hg.pause_ms_total??0)}ms total)</div></div>`+
+   `<div class="card"><div class="v">${esc(((hg.generations||{})["2"]||{}).p99_ms??0)}ms</div><div class="k">gen2 gc pause p99</div></div>`+
+   `<div class="card"><div class="v">${esc(hp.fds??0)}</div><div class="k">open fds</div></div>`+
+   `<div class="card"><div class="v">${esc(hex.threads??0)}/${esc(hex.queue??0)}</div><div class="k">executor threads/queued</div></div>`+
+   `<div class="card"><div class="v">${esc(hp.threads??0)}</div><div class="k">process threads</div></div>`;
+  const hk=await j("/api/v1/hotkeys");
+  const hks=hk.spaces||{};
+  const hkCard=(space,label)=>{const v=hks[space]||{};const top=(v.top||[])[0];
+   return `<div class="card"><div class="v"${v.alerting?' style="color:#b00020"':''}>${top?esc(top.key)+" ("+esc(((top.share??0)*100).toFixed(1))+"%)":"&mdash;"}</div>
+    <div class="k">${esc(label)} (n=${esc(v.total??0)}, ~${esc(v.distinct_est??0)} keys)</div></div>`};
+  document.getElementById("hotkeys").innerHTML=
+   (hk.enabled?"":`<div class="card"><div class="v">off</div><div class="k">hotkeys disabled</div></div>`)+
+   hkCard("topics","hot topic")+hkCard("topic_bytes","hot topic (bytes)")+
+   hkCard("publishers","top publisher")+hkCard("subscribers","top subscriber")+
+   hkCard("prefixes","hot prefix")+hkCard("drops","hot drop key")+
+   `<div class="card"><div class="v"${(hk.alerts_total??0)?' style="color:#b00020"':''}>${esc(hk.alerts_total??0)}</div><div class="k">hotkey alerts (rotations ${esc(hk.rotations??0)})</div></div>`;
+  const lat=await j("/api/v1/latency");
+  const hs=lat.histograms||{};
+  document.getElementById("latency").innerHTML=
+   (lat.enabled?"":`<div class="card"><div class="v">off</div><div class="k">telemetry disabled</div></div>`)+
+   LAT_STAGES.map(([st,qs])=>{const h=hs[st];if(!h||!h.count)return "";
+    return qs.map(q=>`<div class="card"><div class="v">${esc(ms(h[q]))}</div>
+     <div class="k">${esc(st)} ${esc(q)} (n=${esc(h.count)})</div></div>`).join("")}).join("");
+  document.getElementById("err").textContent="";
+ }catch(e){document.getElementById("err").textContent=String(e)}
+}
+tick();setInterval(tick,2000);
+</script></body></html>
+"""

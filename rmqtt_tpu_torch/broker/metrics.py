@@ -1,0 +1,247 @@
+"""Broker metrics & stats.
+
+Mirrors the reference's counter surface (`rmqtt/src/metrics.rs`
+50+ atomic counters via #[derive(Metrics)], and `stats.rs` gauges). Python
+ints under the GIL are atomic enough for the host side; the TPU kernel path
+reports its own batch counters.
+"""
+
+from __future__ import annotations
+
+from collections import defaultdict
+from typing import Dict, Union
+
+
+class Metrics:
+    """Named monotonic counters (metrics.rs:68-135 naming scheme)."""
+
+    def __init__(self) -> None:
+        self._c: Dict[str, int] = defaultdict(int)
+
+    def inc(self, name: str, n: int = 1) -> None:
+        self._c[name] += n
+
+    def drop(self, reason: str, n: int = 1) -> None:
+        """Reason-labeled message drop: bumps BOTH the flat
+        ``messages.dropped`` aggregate (dashboard compatibility) and
+        ``messages.dropped.<reason>`` (``queue_full`` / ``rate_limited`` /
+        ``shed_qos0`` / ``circuit_open`` / ``expired`` / ...)."""
+        self._c["messages.dropped"] += n
+        self._c["messages.dropped." + reason] += n
+
+    def get(self, name: str) -> int:
+        return self._c.get(name, 0)
+
+    def to_json(self) -> Dict[str, int]:
+        return dict(sorted(self._c.items()))
+
+
+class Stats:
+    """Gauge snapshot (stats.rs:73-132): filled in by ServerContext.stats()."""
+
+    def __init__(self) -> None:
+        self.connections = 0
+        self.sessions = 0
+        self.subscriptions = 0
+        self.subscriptions_shared = 0
+        self.retaineds = 0
+        self.delayed_publishs = 0
+        self.in_inflights = 0
+        self.out_inflights = 0
+        self.message_queues = 0
+        self.topics = 0
+        self.routes = 0
+        # rate/handshake surfaces (stats.rs:75-80,221): completed total,
+        # in-flight negotiations, completion rate (ops/sec x 100 like the
+        # reference's integer encoding)
+        self.handshakings = 0
+        self.handshakings_active = 0
+        self.handshakings_rate = 0
+        # cluster forwarding ops + stored offline messages (stats.rs:95-98)
+        self.forwards = 0
+        self.message_storages = 0
+        # routing match-result cache gauges (router/cache.py), overwritten
+        # from RoutingService.stats() in ServerContext.stats(); declared
+        # here so the observability surface is shape-stable even before the
+        # routing service starts (tier-1 pins these keys)
+        self.routing_cache_size = 0
+        self.routing_cache_hits = 0
+        self.routing_cache_misses = 0
+        self.routing_cache_invalidations = 0
+        self.routing_cache_evictions = 0
+        self.routing_cache_door_rejects = 0
+        # device-table lifecycle gauges (ops/partitioned.py delta uploads +
+        # background compaction), overwritten from RoutingService.stats();
+        # zeros for routers without a device mirror
+        self.routing_uploads = 0
+        self.routing_delta_uploads = 0
+        self.routing_upload_bytes = 0
+        self.routing_compactions = 0
+        self.routing_compact_ms_total = 0.0  # cumulative → summed, not averaged
+        self.routing_cand_cache_invalidations = 0
+        self.routing_fused_batches = 0
+        # per-stage device dispatch attribution (stage_timing promoted
+        # to the live surface via XlaRouter.device_stats): cumulative ms,
+        # _total suffix → summed in /stats/sum like compact_ms_total
+        self.routing_stage_encode_ms_total = 0.0
+        self.routing_stage_dispatch_ms_total = 0.0
+        self.routing_stage_fetch_ms_total = 0.0
+        self.routing_stage_decode_ms_total = 0.0
+        # device-plane profiler gauges (broker/devprof.py), filled by
+        # ServerContext.stats(): jit shape-registry totals, retrace storms,
+        # and the modeled HBM residency (sums to a fleet total in
+        # /stats/sum); zeros with the profiler off or no device router
+        self.device_jit_traces = 0
+        self.device_jit_cache_hits = 0
+        self.device_retrace_storms = 0
+        self.device_hbm_modeled_mb = 0.0
+        # latency percentile gauges (broker/telemetry.py histograms),
+        # overwritten from RoutingService.stats(); the `_ms` suffix marks
+        # average-mode for cluster /stats/sum merging (like `_ema`) —
+        # latency percentiles are never summable across nodes
+        self.routing_match_p50_ms = 0.0
+        self.routing_match_p99_ms = 0.0
+        self.routing_queue_wait_p50_ms = 0.0
+        self.routing_queue_wait_p99_ms = 0.0
+        self.publish_e2e_p50_ms = 0.0
+        self.publish_e2e_p99_ms = 0.0
+        # overload-control gauges (broker/overload.py), overwritten by
+        # ServerContext.stats(); declared for shape stability. state is
+        # 0=NORMAL 1=ELEVATED 2=CRITICAL; open breakers counts circuits
+        # currently not closed (open or half-open probing)
+        self.overload_state = 0
+        self.overload_transitions = 0
+        self.overload_open_breakers = 0
+        # SLO-engine gauges (broker/slo.py), overwritten by
+        # ServerContext.stats(). state is the WORST objective's state:
+        # 0=OK 1=BURNING (fast-window burn over the alert rate)
+        # 2=EXHAUSTED (slow-window error budget fully spent)
+        self.slo_state = 0
+        self.slo_transitions = 0
+        # autotuner gauges (broker/autotune.py), overwritten by
+        # ServerContext.stats(): canary epochs started / committed /
+        # rolled back — summable counts (zeros while the plane is off)
+        self.autotune_decisions = 0
+        self.autotune_commits = 0
+        self.autotune_rollbacks = 0
+        # process resident set (utils/sysmon.py); a plain sum-mode float so
+        # /stats/sum reports cluster-total memory
+        self.rss_mb = 0.0
+        # host-plane profiler gauges (broker/hostprof.py), filled by
+        # ServerContext.stats(); zeros while host_profile is off so the
+        # observability surface stays shape-stable. lag p99 is avg-mode
+        # (`_ms`); gc_pause_ms_total is cumulative (`_total` → summed);
+        # the rest are counters / live process gauges (fds, threads)
+        self.host_loop_lag_p99_ms = 0.0
+        self.host_loop_laggy_ticks = 0
+        self.host_lag_storms = 0
+        self.host_blocked_calls = 0
+        self.host_gc_pauses = 0
+        self.host_gc_pause_ms_total = 0.0
+        self.host_open_fds = 0
+        self.host_threads = 0
+        # device-plane failover gauges (broker/failover.py), overwritten
+        # from RoutingService.stats(); zeros for routers without a host
+        # fallback. state is 0=device (healthy) 1=host fallback 2=probing
+        self.routing_failover_state = 0
+        self.routing_failovers = 0
+        self.routing_switchbacks = 0
+        self.routing_failover_host_routed = 0
+        self.routing_device_failures = 0
+        # intra-node routing fabric gauges (broker/fabric.py), overwritten
+        # from RoutingService.stats(); zeros without a fabric so the
+        # observability surface stays shape-stable. kicks_o1 counts CONNECTs
+        # whose takeover kick resolved via the node-local directory (miss =
+        # no RPC at all, hit = one targeted kick — never a worker scatter);
+        # the stage *_ms_total keys are cumulative (summed in /stats/sum)
+        self.fabric_enabled = 0
+        self.fabric_owner = 0
+        self.fabric_batches = 0
+        self.fabric_items = 0
+        self.fabric_bytes_out = 0
+        self.fabric_deliver_in = 0
+        self.fabric_deliver_out = 0
+        self.fabric_kicks_o1 = 0
+        self.fabric_kick_rpcs = 0
+        self.fabric_plan_hits = 0
+        self.fabric_owner_reconnects = 0
+        self.fabric_submit_fallbacks = 0
+        self.directory_epoch = 0
+        self.routing_stage_fabric_submit_ms_total = 0.0
+        self.routing_stage_fabric_fanout_ms_total = 0.0
+        # durability-plane gauges (broker/durability.py), filled by
+        # ServerContext.stats(); zeros while [durability] is disabled so
+        # the observability surface stays shape-stable. journal_len counts
+        # committed rows past the last snapshot; the recovered_* gauges
+        # report what the last cold-start recovery replayed and
+        # recovery_ms (avg-mode, like every `_ms` gauge) how long it took
+        self.durability_enabled = 0
+        self.durability_journal_len = 0
+        self.durability_appends = 0
+        self.durability_commits = 0
+        self.durability_compactions = 0
+        self.durability_recovered_retained = 0
+        self.durability_recovered_sessions = 0
+        self.durability_recovered_subs = 0
+        self.durability_recovered_inflight = 0
+        self.durability_recovery_ms = 0.0
+        # cluster membership + partition-healing gauges
+        # (cluster/membership.py), filled by ServerContext.stats(); zeros
+        # on single-node brokers so the surface stays shape-stable.
+        # peers_* count the failure detector's current view; the rest are
+        # monotonic repair/loss counters (retain_sync_dropped = pushes lost
+        # to unreachable peers, visible until anti-entropy heals them)
+        self.cluster_peers_alive = 0
+        self.cluster_peers_suspect = 0
+        self.cluster_peers_dead = 0
+        self.cluster_membership_transitions = 0
+        self.cluster_retain_sync_dropped = 0
+        self.cluster_fence_kicks = 0
+        self.cluster_anti_entropy_runs = 0
+        # syscall-batched data plane gauges (broker/egress.py), filled by
+        # ServerContext.stats(); zeros with the coalescer/wheel disabled
+        # so the surface stays shape-stable. frames = frames absorbed,
+        # flushes = vectored writes issued (frames/flushes ≈ syscall
+        # batching factor), coalesced = frames that shared a flush with an
+        # earlier one, drains = high-water backpressure flushes;
+        # wheel_sessions = connections currently armed on the keepalive
+        # wheel, wheel_timeouts = idle kills the wheel fired
+        self.net_egress_frames = 0
+        self.net_egress_flushes = 0
+        self.net_egress_bytes = 0
+        self.net_egress_coalesced = 0
+        self.net_egress_drains = 0
+        self.net_wheel_sessions = 0
+        self.net_wheel_timeouts = 0
+        # telemetry-history gauges (broker/history.py), filled by
+        # ServerContext.stats(); zeros with the collector disabled so the
+        # surface stays shape-stable. samples/anomalies are lifetime
+        # counts, segments counts on-disk segment files opened this
+        # process, recovered_rows what the last cold start read back
+        self.history_samples = 0
+        self.history_anomalies = 0
+        self.history_segments = 0
+        self.history_recovered_rows = 0
+        # hot-key attribution gauges (broker/hotkeys.py), filled by
+        # ServerContext.stats(); zeros while disabled so the surface
+        # stays shape-stable. *_tracked = Space-Saving entries live in
+        # the current window (<= hotkeys_k), rotations/alerts are
+        # lifetime counts. The top-1 share deliberately does NOT ride
+        # this surface: /stats/sum SUMS plain gauges and a summed ratio
+        # is meaningless — it lives on the scrape and the history rows
+        self.hotkeys_topics_tracked = 0
+        self.hotkeys_publishers_tracked = 0
+        self.hotkeys_subscribers_tracked = 0
+        self.hotkeys_prefixes_tracked = 0
+        self.hotkeys_rotations = 0
+        self.hotkeys_alerts = 0
+
+    def to_json(self) -> Dict[str, Union[int, float]]:
+        """Gauge dict for the admin surfaces. Most gauges are ints; the
+        ``*_ms``/``*_ema`` keys are floats — rounded to 3 decimals HERE so
+        every consumer (/stats, /stats/sum inputs, $SYS, dashboards) sees
+        the same shape regardless of which path filled the gauge."""
+        return {
+            k: (round(v, 3) if isinstance(v, float) else v)
+            for k, v in vars(self).items()
+        }

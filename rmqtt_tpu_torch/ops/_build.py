@@ -54,6 +54,19 @@ class KernelLibrary:
     build_s: float  # 0.0 when an existing build was loaded
 
 
+class KernelError(RuntimeError):
+    """A words kernel failed to build, load or launch on the card. The
+    broker rejects the batch it was routing rather than serving it off the
+    card (``kernel_fault``)."""
+
+
+def kernel_fault(exc: BaseException) -> bool:
+    """Is ``exc`` a fault of the card's kernels: a build, load or launch
+    error of the words kernels, or a CUDA error that torch raised (an
+    asynchronous kernel fault surfaces at the next synchronisation)?"""
+    return isinstance(exc, KernelError) or "CUDA error" in str(exc)
+
+
 _LOCK = threading.Lock()
 _LOADED: Optional[KernelLibrary] = None
 
@@ -68,7 +81,7 @@ def _nvcc() -> str:
     default = Path("/usr/local/cuda/bin/nvcc")
     if default.exists():
         return str(default)
-    raise RuntimeError(
+    raise KernelError(
         "nvcc not found (set CUDA_HOME or put nvcc on PATH): the CUDA "
         "kernels of rmqtt_tpu_torch are built from source at first use")
 
@@ -83,7 +96,7 @@ def _build(so: Path, log_path: Path) -> tuple:
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
+        raise KernelError(
             f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{log}")
     log_path.write_text(log)
     os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
@@ -106,7 +119,10 @@ def kernel_library() -> KernelLibrary:
             secs = 0.0
         else:
             log, secs = _build(so, log_path)
-        lib = ctypes.CDLL(str(so))
+        try:
+            lib = ctypes.CDLL(str(so))
+        except OSError as e:
+            raise KernelError(f"cannot load {so}: {e}") from e
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = list(argtypes)

@@ -33,6 +33,7 @@ from typing import Optional
 
 import torch
 
+from rmqtt_tpu_torch.ops._build import KernelError
 from rmqtt_tpu_torch.ops.encode import PLUS_TOK, PackedLayout
 
 CHUNK = 128  # rows per tile (ops/partitioned.py CHUNK)
@@ -147,7 +148,7 @@ def _check_cuda(name: str, tiles, tile_dtypes, ttok, tlen, tdollar,
 
 def _raise_on(err: int, name: str) -> None:
     if err:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err} "
+        raise KernelError(f"{name}: CUDA launch failed with error {err} "
                            f"({torch.cuda.get_device_name()})")
 
 

@@ -55,8 +55,13 @@ from rmqtt_tpu_torch.ops.encode import (
 # its docstrings say 256, which is wrong
 from rmqtt_tpu_torch.ops.match_words import CHUNK, WORDS_PER_CHUNK, words_any
 from rmqtt_tpu_torch.utils.devfetch import fetch
+from rmqtt_tpu_torch.utils.failpoints import FAILPOINTS
 
 _LOG = logging.getLogger("rmqtt_tpu_torch.ops")
+
+#: chaos seam of the device-table mirror (utils/failpoints.py): fires when
+#: a refresh — delta scatter or full pack + upload — is about to run
+_FP_UPLOAD = FAILPOINTS.register("device.upload")
 
 # partition key kinds
 _K_HASH = ("#",)
@@ -1405,6 +1410,10 @@ class PartitionedMatcher:
         st = self._dev
         if st is not None and st.snap.version == t.version:
             return st
+        # injected upload faults fire before the table lock, so a `hang`
+        # wedges only this refresh, never subscribes
+        if _FP_UPLOAD.action is not None:
+            _FP_UPLOAD.fire_sync()
         with t._mu:
             st = self._dev
             if st is not None and st.snap.version == t.version:

@@ -1,0 +1,227 @@
+"""The repo's C++ host runtime (``runtime/*.cc`` at the repo root), bound
+with ctypes.
+
+It provides the native topic trie (``NativeTrie``: the host mirror behind
+``TorchRouter``'s small-batch hybrid and device failover, and the
+``native`` router), the MQTT frame scanner and PUBLISH encoder the codec
+uses (``codec_scan``, ``codec_encode_publish``) and topic validation
+(``topic_validate``). The batched topic encoder (``NativeEncoder`` in the
+JAX package) is not bound here yet (ROADMAP Queue A item 8).
+
+The shared library is built at first use with ``g++`` into
+``rmqtt_tpu_torch/_build/``, under a name keyed on a hash of the sources
+and flags (the library in ``runtime/`` belongs to the JAX package). Where
+no C++ toolchain is present ``available()`` is False and the callers use
+their Python paths (the Python trie, the Python codec), as the JAX
+package does. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import logging
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import List, Optional, Sequence
+
+import numpy as np
+
+log = logging.getLogger("rmqtt_tpu_torch.runtime")
+
+_PKG = Path(__file__).resolve().parent.parent
+RUNTIME_DIR = _PKG.parent / "runtime"
+SOURCES = ("topics.cc", "encode.cc", "codec.cc")
+HEADER = "rmqtt_runtime.h"
+BUILD_DIR = _PKG / "_build"
+CXX_FLAGS = ("-O2", "-std=c++20", "-fPIC", "-Wall", "-Wextra", "-shared")
+
+_LOCK = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+_build_failed = False
+
+
+def _library_path() -> Path:
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    for name in (*SOURCES, HEADER):
+        h.update((RUNTIME_DIR / name).read_bytes())
+    return BUILD_DIR / f"runtime_{h.hexdigest()[:16]}.so"
+
+
+def _build(so: Path) -> bool:
+    cxx = os.environ.get("CXX") or shutil.which("g++")
+    if cxx is None:
+        log.warning("native runtime unavailable: no C++ compiler (g++)")
+        return False
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp.so")
+    cmd = [cxx, *CXX_FLAGS, "-o", str(tmp),
+           *(str(RUNTIME_DIR / s) for s in SOURCES)]
+    try:
+        subprocess.run(cmd, check=True, capture_output=True, timeout=300)
+    except (subprocess.CalledProcessError, subprocess.TimeoutExpired, OSError) as e:
+        tmp.unlink(missing_ok=True)
+        log.warning("native runtime build failed: %s", e)
+        return False
+    os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
+    return True
+
+
+def load() -> Optional[ctypes.CDLL]:
+    """Load (building once per source hash) the native library; None if it
+    cannot be built here."""
+    global _lib, _build_failed
+    with _LOCK:
+        if _lib is not None or _build_failed:
+            return _lib
+        so = _library_path()
+        if not so.exists() and not _build(so):
+            _build_failed = True
+            return None
+        lib = ctypes.CDLL(str(so))
+        i64p = ctypes.POINTER(ctypes.c_int64)
+        lib.rt_trie_new.restype = ctypes.c_void_p
+        lib.rt_trie_free.argtypes = [ctypes.c_void_p]
+        lib.rt_trie_add.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64]
+        lib.rt_trie_add.restype = ctypes.c_int
+        lib.rt_trie_remove.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64]
+        lib.rt_trie_remove.restype = ctypes.c_int
+        lib.rt_trie_size.argtypes = [ctypes.c_void_p]
+        lib.rt_trie_size.restype = ctypes.c_int64
+        lib.rt_trie_match.argtypes = [ctypes.c_void_p, ctypes.c_char_p, i64p,
+                                      ctypes.c_int64]
+        lib.rt_trie_match.restype = ctypes.c_int64
+        lib.rt_trie_match_batch.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64, i64p, i64p,
+            ctypes.c_int64,
+        ]
+        lib.rt_trie_match_batch.restype = ctypes.c_int64
+        lib.rt_codec_scan.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int64,
+            i64p, ctypes.c_int64, i64p, ctypes.POINTER(ctypes.c_int32),
+        ]
+        lib.rt_codec_scan.restype = ctypes.c_int64
+        lib.rt_codec_encode_publish.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64,
+            ctypes.c_char_p, ctypes.c_int64,
+            ctypes.c_char_p, ctypes.c_int64,
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
+        ]
+        lib.rt_codec_encode_publish.restype = ctypes.c_int64
+        lib.rt_topic_validate.argtypes = [ctypes.c_char_p, ctypes.c_int64,
+                                          ctypes.c_int32]
+        lib.rt_topic_validate.restype = ctypes.c_int
+        _lib = lib
+        return lib
+
+
+CODEC_STRIDE = 10  # int64 slots per frame record (runtime/codec.cc)
+_SCAN_CAP = 8192  # frames per scan call; feed loops on over-full buffers
+
+
+def codec_scan(lib, buf: bytes, is_v5: bool, max_size: int):
+    """→ (rows list [n][stride], consumed, err, hit_cap)."""
+    cap = min(len(buf) // 2 + 1, _SCAN_CAP)
+    meta = np.empty((cap, CODEC_STRIDE), dtype=np.int64)
+    consumed = ctypes.c_int64(0)
+    err = ctypes.c_int32(0)
+    n = lib.rt_codec_scan(
+        buf, len(buf), 1 if is_v5 else 0, max_size,
+        meta.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), cap,
+        ctypes.byref(consumed), ctypes.byref(err),
+    )
+    return meta[:n].tolist(), consumed.value, err.value, n == cap
+
+
+def codec_encode_publish(lib, topic: bytes, payload: bytes, props: bytes,
+                         qos: int, retain: bool, dup: bool,
+                         packet_id: Optional[int]) -> Optional[bytes]:
+    """Assemble one complete PUBLISH wire frame in C++ (codec.cc). `props`
+    is the pre-encoded v5 properties blob (varint prefix + content; empty
+    for v3). None when the frame outgrows the computed capacity — the
+    caller then uses the Python encoder."""
+    cap = 7 + len(topic) + len(props) + len(payload) + (2 if qos else 0)
+    out = (ctypes.c_uint8 * cap)()
+    n = lib.rt_codec_encode_publish(
+        topic, len(topic), payload, len(payload), props, len(props),
+        qos, 1 if retain else 0, 1 if dup else 0,
+        -1 if packet_id is None else packet_id, out, cap,
+    )
+    if n < 0:
+        return None
+    return bytes(out[:n])
+
+
+def topic_validate(topic: str, is_filter: bool) -> Optional[bool]:
+    """Native topic/filter validation; None if the runtime is unavailable."""
+    lib = load()
+    if lib is None:
+        return None
+    raw = topic.encode()
+    return bool(lib.rt_topic_validate(raw, len(raw), 1 if is_filter else 0))
+
+
+def available() -> bool:
+    return load() is not None
+
+
+class NativeTrie:
+    """ctypes wrapper over the C++ trie (same semantics as core.trie.TopicTree)."""
+
+    def __init__(self) -> None:
+        lib = load()
+        if lib is None:
+            raise RuntimeError("native runtime unavailable (no C++ toolchain?)")
+        self._lib = lib
+        self._ptr = ctypes.c_void_p(lib.rt_trie_new())
+
+    def __del__(self) -> None:
+        ptr = getattr(self, "_ptr", None)
+        if ptr:
+            self._lib.rt_trie_free(ptr)
+            self._ptr = None
+
+    def add(self, topic_filter: str, value: int) -> bool:
+        return bool(self._lib.rt_trie_add(self._ptr, topic_filter.encode(), value))
+
+    def remove(self, topic_filter: str, value: int) -> bool:
+        return bool(self._lib.rt_trie_remove(self._ptr, topic_filter.encode(), value))
+
+    def __len__(self) -> int:
+        return int(self._lib.rt_trie_size(self._ptr))
+
+    def match(self, topic: str, cap: int = 4096) -> np.ndarray:
+        buf = np.empty(cap, dtype=np.int64)
+        n = self._lib.rt_trie_match(
+            self._ptr, topic.encode(), buf.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), cap
+        )
+        if n > cap:  # rare: grow and retry
+            return self.match(topic, cap=int(n))
+        return buf[:n].copy()
+
+    def match_batch(self, topics: Sequence[str], cap_per_topic: int = 64) -> List[np.ndarray]:
+        blob = b"\x00".join(t.encode() for t in topics) + b"\x00"
+        n = len(topics)
+        counts = np.empty(n, dtype=np.int64)
+        cap = max(1, cap_per_topic * n)
+        while True:
+            out = np.empty(cap, dtype=np.int64)
+            total = self._lib.rt_trie_match_batch(
+                self._ptr, blob, n,
+                counts.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+                out.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), cap,
+            )
+            if total <= cap:
+                break
+            cap = int(total)
+        rows: List[np.ndarray] = []
+        off = 0
+        for j in range(n):
+            c = int(counts[j])
+            rows.append(out[off : off + c].copy())
+            off += c
+        return rows

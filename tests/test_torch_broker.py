@@ -1,0 +1,321 @@
+"""The port's broker (``rmqtt_tpu_torch.broker``): its modules are the JAX
+package's with imports rewritten (one case per file, the deliberate
+changes listed with their reasons); it serves MQTT over TCP with every
+routed batch on ``TorchRouter(device="cpu")`` and delivers exactly what the
+JAX package's broker on its trie router delivers; a configuration that
+needs a part not yet ported refuses the start; ``--router xla`` needs a
+CUDA device."""
+
+import asyncio
+import collections
+import gc
+import pathlib
+import random
+import re
+import threading
+
+import pytest
+import torch
+
+from rmqtt_tpu.broker.context import BrokerConfig as JBrokerConfig
+from rmqtt_tpu.broker.context import ServerContext as JServerContext
+from rmqtt_tpu.broker.server import MqttBroker as JMqttBroker
+from rmqtt_tpu_torch.bench.workloads import gen_mixed, gen_topics_uniform
+from rmqtt_tpu_torch.broker import server as tserver
+from rmqtt_tpu_torch.broker.context import BrokerConfig, ServerContext
+from rmqtt_tpu_torch.router import Id, SubscriptionOptions, TorchRouter
+from rmqtt_tpu_torch.router.default import DefaultRouter
+
+from tests.mqtt_client import TestClient
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+JAX_PKG = ROOT / "rmqtt_tpu"
+PORT_PKG = ROOT / "rmqtt_tpu_torch"
+
+# ---------------------------------------------------------------- copies
+#: the rewrite that turns a JAX-package module into its port: the package
+#: name, paths into the reference source tree made relative, and the JAX
+#: package's own change numbers dropped from comments
+_RULES = [
+    (re.compile(r" \(PR ?\d+\)"), ""),
+    (re.compile(r"\bPR ?\d+'s\b"), "the"),
+    (re.compile(r"^PR ?\d+ made", re.M), "The device profiler made"),
+    (re.compile(r"\(PR ?\d+ "), "("),
+    (re.compile(r" PR ?\d+\b"), ""),
+]
+
+
+#: an absolute path into the reference checkout, e.g. ``/x/reference/``
+_REFERENCE_PREFIX = re.compile(r"(?<![\w.])/\w+/reference/")
+
+
+def rewrite(text: str) -> str:
+    text = _REFERENCE_PREFIX.sub("", text).replace("rmqtt_tpu", "rmqtt_tpu_torch")
+    for rx, sub in _RULES:
+        text = rx.sub(sub, text)
+    return text
+
+
+#: ported modules that differ from the rewrite on purpose
+DELIBERATE = {
+    "broker/__main__.py": "main() runs under the __main__ check, so importing "
+                          "the module (the boundary test does) starts nothing",
+    "broker/context.py": "router 'xla' builds TorchRouter (no tpuprobe); "
+                         "[cluster] and [durability] raise NotImplementedError "
+                         "at construction (refuse_unported)",
+    "broker/hostprof.py": "its lock is reentrant: the gc callback runs on "
+                          "whichever thread collects, also one that holds "
+                          "the lock (a plain Lock deadlocks the broker)",
+    "broker/retain.py": "retain_tpu raises NotImplementedError (the device "
+                        "retained scan is ROADMAP Queue A item 10); the "
+                        "device mirror code is gone",
+    "broker/devprof.py": "the HBM census reads the CUDA allocator instead of "
+                         "jax.live_arrays(); the matcher seams are not wired",
+    "broker/routing.py": "stats() also reports the words kernels' launch "
+                         "counts (routing_kernel_launches_packed/_legacy); a "
+                         "kernel fault rejects the batch instead of failing "
+                         "over to the host trie",
+    "broker/failover.py": "a kernel fault in the half-open probe routes on "
+                          "the card again instead of keeping the host plane",
+    "broker/server.py": "no cluster start, --workers raises, parse_args(argv) "
+                        "split out of main(argv)",
+    "conf.py": "instantiate_plugins raises NotImplementedError for every "
+               "plugin (plugins/ and bridge/ are not ported)",
+    "runtime/__init__.py": "the port's own binding: builds with g++ into "
+                           "_build/, binds the trie, codec and validation only",
+    "router/torch_router.py": "TorchRouter, the port of XlaRouter",
+}
+
+_COPIED = ([p.relative_to(JAX_PKG).as_posix()
+            for p in sorted((JAX_PKG / "broker").rglob("*.py"))]
+           + ["conf.py", "plugins/__init__.py", "cluster/__init__.py",
+              "cluster/wire.py", "cluster/messages.py", "utils/__init__.py",
+              "utils/failpoints.py", "utils/counter.py", "utils/sysmon.py",
+              "ops/hybrid.py", "router/default.py", "router/native.py",
+              "router/cache.py", "core/topic.py"])
+VERBATIM = [rel for rel in _COPIED if rel not in DELIBERATE]
+
+
+@pytest.mark.parametrize("rel", VERBATIM)
+def test_verbatim_copy(rel):
+    want = rewrite((JAX_PKG / rel).read_text())
+    assert (PORT_PKG / rel).read_text() == want, (
+        f"rmqtt_tpu_torch/{rel} is no longer the JAX package's module with "
+        "imports rewritten: port the change there too, or list it in "
+        "DELIBERATE with its reason")
+
+
+def test_every_broker_module_is_ported():
+    jax_side = {p.relative_to(JAX_PKG).as_posix()
+                for p in (JAX_PKG / "broker").rglob("*.py")}
+    port_side = {p.relative_to(PORT_PKG).as_posix()
+                 for p in (PORT_PKG / "broker").rglob("*.py")}
+    assert jax_side == port_side and len(port_side) == 41
+    for rel in DELIBERATE:
+        assert (PORT_PKG / rel).exists(), rel
+
+
+# ---------------------------------------------------------- live TCP drive
+async def _drive(port: int, subs, topics, want_n):
+    """Subscribe ``subs`` ({client: [(filter, qos)]}), publish ``topics``
+    at QoS 0/1/2 from 25 clients, read until every subscriber has its
+    ``want_n`` deliveries and then a short quiet window → received multiset
+    of (client, topic, payload, qos)."""
+    clients = {}
+    for cid, rows in subs.items():
+        c = await TestClient.connect(port, cid)
+        for q in range(3):
+            await c.subscribe(*[f for f, fq in rows if fq == q], qos=q)
+        clients[cid] = c
+    pubs = [await TestClient.connect(port, f"p{k}") for k in range(25)]
+
+    async def publish(k, pub):
+        # 25 publishers at once, so the routing batches hold several
+        # topics; every 8th QoS 1/2 publish waits for its ack, which keeps
+        # at most 8 in flight, inside the broker's inbound window of 16
+        acked = 0
+        for i in range(k, len(topics), len(pubs)):
+            qos = i % 3
+            acked += qos > 0
+            await pub.publish(topics[i], f"m{i}".encode(), qos=qos,
+                              wait_ack=qos > 0 and acked % 8 == 0)
+        await pub.ping()
+
+    await asyncio.gather(*(publish(k, pub) for k, pub in enumerate(pubs)))
+
+    async def collect(cid, c):
+        rows = []
+        while len(rows) < want_n[cid]:
+            rows.append(await c.recv(timeout=5.0))
+        try:
+            while True:
+                rows.append(await c.recv(timeout=0.2))
+        except asyncio.TimeoutError:
+            pass
+        return [(cid, p.topic, bytes(p.payload), p.qos) for p in rows]
+
+    got = collections.Counter()
+    for rows in await asyncio.gather(*(collect(cid, c) for cid, c in clients.items())):
+        got.update(rows)
+    for c in [*clients.values(), *pubs]:
+        await c.disconnect_clean()
+    return got
+
+
+def test_live_tcp_drive_matches_the_jax_broker(monkeypatch):
+    """The port's MqttBroker with every batch on TorchRouter(device="cpu")
+    (hybrid off) against the JAX broker on its trie router: ~200 filters,
+    500 publishes at QoS 0/1/2, identical deliveries, all on the device."""
+    monkeypatch.setenv("RMQTT_HYBRID_MAX", "0")
+    rng = random.Random(5)
+    filters = gen_mixed(rng, 200)
+    subs = collections.defaultdict(list)
+    for i, f in enumerate(filters):
+        subs[f"s{i % 8}"].append((f, i % 3))
+    topics = gen_topics_uniform(rng, 500)
+    oracle = DefaultRouter()
+    for cid, rows in subs.items():
+        for f, q in rows:
+            oracle.add(f, Id(1, cid), SubscriptionOptions(qos=q))
+    want = collections.Counter()
+    for i, topic in enumerate(topics):
+        for rels in oracle.matches(None, topic).values():
+            for r in rels:
+                want[(r.id.client_id, topic, f"m{i}".encode())] += 1
+    want_n = collections.Counter()
+    for (cid, *_), n in want.items():
+        want_n[cid] += n
+    assert sum(want.values()) > 500
+
+    async def run():
+        jb = JMqttBroker(JServerContext(JBrokerConfig(port=0)))
+        router = TorchRouter(device="cpu")
+        tb = tserver.MqttBroker(ServerContext(BrokerConfig(port=0), router=router))
+        await jb.start()
+        await tb.start()
+        try:
+            got_j = await _drive(jb.port, subs, topics, want_n)
+            fused0 = router.matcher.fused_batches
+            got_t = await _drive(tb.port, subs, topics, want_n)
+            st = tb.ctx.routing.stats()
+            return got_j, got_t, router.matcher.fused_batches - fused0, st
+        finally:
+            await tb.stop()
+            await jb.stop()
+
+    got_j, got_t, fused, st = asyncio.run(asyncio.wait_for(run(), timeout=20.0))
+    assert got_t == got_j
+    no_qos = collections.Counter()
+    for (cid, topic, payload, _qos), n in got_t.items():
+        no_qos[(cid, topic, payload)] += n
+    assert no_qos == want
+    assert fused > 0 and st["routing_failover_state"] == 0
+    assert st["routing_failovers"] == 0
+
+
+def test_load_client_wave_on_cpu(monkeypatch):
+    """The load client and oracle ``chip_smoke.py`` drives the broker with
+    (``bench/mqtt_load.py``), here against an in-process broker with every
+    batch on ``TorchRouter(device="cpu")``."""
+    from rmqtt_tpu_torch.bench.mqtt_load import (LoadClient, connect_and_subscribe,
+                                                 expected_deliveries, oracle_router,
+                                                 publish_wave)
+
+    monkeypatch.setenv("RMQTT_HYBRID_MAX", "0")
+    rng = random.Random(6)
+    filters = gen_mixed(rng, 300)
+    subs = {f"s{k}": filters[k::4] for k in range(4)}
+    topics = gen_topics_uniform(rng, 300)
+    payloads = [b"p%d" % i for i in range(len(topics))]
+    want = expected_deliveries(oracle_router(subs), topics, payloads)
+    assert sum(want.values()) > 300
+
+    async def run():
+        router = TorchRouter(device="cpu")
+        broker = tserver.MqttBroker(ServerContext(BrokerConfig(port=0), router=router))
+        await broker.start()
+        try:
+            subscribers = await connect_and_subscribe(broker.port, subs)
+            pubs = [await LoadClient.connect(broker.port, f"p{k}") for k in range(4)]
+            f0 = router.matcher.fused_batches
+            got, secs = await publish_wave(pubs, subscribers, topics, payloads,
+                                           want, timeout=15.0, quiet=0.2)
+            for c in [*subscribers, *pubs]:
+                await c.close()
+            return got, secs, router.matcher.fused_batches - f0
+        finally:
+            await broker.stop()
+
+    got, secs, fused = asyncio.run(asyncio.wait_for(run(), timeout=20.0))
+    assert got == want and secs > 0 and fused > 0
+
+
+def test_gc_inside_the_host_profiler_lock():
+    """A collection that starts while the host profiler holds its lock (its
+    snapshot allocates under it) runs the profiler's gc callback on the
+    same thread, which takes the lock again: it must not deadlock."""
+    from rmqtt_tpu_torch.broker.hostprof import HostProfiler
+
+    hp = HostProfiler(enabled=True)
+    gc.callbacks.append(hp._gc_cb)
+    try:
+        done = threading.Event()
+
+        def collect_under_the_lock():
+            with hp._lock:
+                gc.collect()
+            done.set()
+
+        threading.Thread(target=collect_under_the_lock, daemon=True).start()
+        assert done.wait(10.0), "the gc callback waited on its own lock"
+    finally:
+        gc.callbacks.remove(hp._gc_cb)
+    assert sum(hp.gc_pauses.values()) >= 1
+
+
+# --------------------------------------------------------- refused starts
+_UNPORTED = {
+    "retain_tpu": ("[retain]\ntpu = true\n", "retain_tpu"),
+    "plugin": ('[plugins]\ndefault_startups = ["rmqtt-counter"]\n', "rmqtt-counter"),
+    "bridge": ('[plugins]\ndefault_startups = ["rmqtt-bridge-egress-kafka"]\n',
+               "bridge_kafka"),
+    "cluster": ('[cluster]\nlisten = "127.0.0.1:0"\n', r"\[cluster\]"),
+    "durability": ("[durability]\nenable = true\n", r"\[durability\]"),
+}
+
+
+@pytest.mark.parametrize("section", sorted(_UNPORTED))
+def test_unported_section_refuses_the_start(section, tmp_path):
+    toml, match = _UNPORTED[section]
+    cfg = tmp_path / "rmqtt.toml"
+    cfg.write_text(f"[listener]\nport = 0\n{toml}")
+    args = tserver.parse_args(["--config", str(cfg), "--no-http-api"])
+
+    async def start():
+        await asyncio.wait_for(tserver._amain(args), timeout=20.0)
+
+    with pytest.raises(NotImplementedError, match=match):
+        asyncio.run(start())
+
+
+def test_workers_refuse_the_start():
+    with pytest.raises(NotImplementedError, match="--workers"):
+        tserver.main(["--workers", "2", "--port", "0"])
+
+
+def test_router_xla_needs_cuda(monkeypatch):
+    """``--router xla`` is TorchRouter on the current CUDA device: without
+    one the start raises, and nothing routes on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServerContext(BrokerConfig(router="xla", port=0))
+    args = tserver.parse_args(["--router", "xla", "--port", "0", "--no-http-api"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        asyncio.run(asyncio.wait_for(tserver._amain(args), timeout=20.0))
+
+
+def test_trie_and_native_routers_need_no_device():
+    for name in ("trie", "native"):
+        ctx = ServerContext(BrokerConfig(router=name, port=0))
+        assert type(ctx.router).__name__ == {"trie": "DefaultRouter",
+                                             "native": "NativeRouter"}[name]

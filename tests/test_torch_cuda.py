@@ -1,11 +1,13 @@
-"""The CUDA kernels on a card: each against its plain twin, and the router
-on the card against the same router on the CPU.
+"""The CUDA kernels on a card: each against its plain twin, the router on
+the card against the same router on the CPU, and the port's broker with
+every batch on the card against the ``DefaultRouter`` oracle.
 
 This file imports nothing of JAX, so it also runs where JAX is not
 installed: ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
 on a machine with an NVIDIA GPU (``tests/conftest.py`` imports JAX).
 Every test here skips where torch sees no CUDA device."""
 
+import asyncio
 import random
 
 import numpy as np
@@ -14,7 +16,12 @@ import torch
 
 import rmqtt_tpu_torch.ops.match_words as MW
 import rmqtt_tpu_torch.ops.partitioned as TP
+from rmqtt_tpu_torch.bench.mqtt_load import (LoadClient, connect_and_subscribe,
+                                             expected_deliveries, oracle_router,
+                                             publish_wave)
 from rmqtt_tpu_torch.bench.words_cases import EDGE_CASES, make_case
+from rmqtt_tpu_torch.broker.context import BrokerConfig, ServerContext
+from rmqtt_tpu_torch.broker.server import MqttBroker
 from rmqtt_tpu_torch.bench.workloads import gen_mixed, gen_topics_uniform
 from rmqtt_tpu_torch.router import Id, SubscriptionOptions, TorchRouter
 
@@ -137,3 +144,59 @@ def test_router_on_cuda_equals_cpu(cuda, packed, monkeypatch):
     assert all(np.array_equal(g, w) for g, w in zip(got, want))
     m = routers[0].matcher
     assert (m.full_uploads, m.delta_uploads) == (1, 1)
+
+
+@pytest.mark.cuda
+def test_broker_on_cuda_equals_default_router(cuda, monkeypatch):
+    """An in-process broker on ``TorchRouter`` on the card with the hybrid
+    off (every batch on the device): 2K filters over 8 subscribers, 1K QoS 0
+    publishes from 4 publishers, deliveries equal to the oracle's."""
+    monkeypatch.setenv("RMQTT_HYBRID_MAX", "0")
+    rng = random.Random(3)
+    filters = gen_mixed(rng, 2000)
+    subs = {f"s{k}": filters[k::8] for k in range(8)}
+    topics = gen_topics_uniform(rng, 1000)
+    payloads = [b"p%d" % i for i in range(len(topics))]
+    want = expected_deliveries(oracle_router(subs), topics, payloads)
+    assert sum(want.values()) > 1000
+
+    async def run():
+        router = TorchRouter(device=cuda)
+        broker = MqttBroker(ServerContext(BrokerConfig(port=0), router=router))
+        await broker.start()
+        try:
+            subscribers = await connect_and_subscribe(broker.port, subs)
+            pubs = [await LoadClient.connect(broker.port, f"p{k}") for k in range(4)]
+            n0, f0 = MW.match_words_packed.launches, router.matcher.fused_batches
+            got, _secs = await publish_wave(pubs, subscribers, topics, payloads,
+                                            want, timeout=60.0)
+            launched = MW.match_words_packed.launches - n0
+            fused = router.matcher.fused_batches - f0
+            st = broker.ctx.routing.stats()
+            for c in [*subscribers, *pubs]:
+                await c.close()
+            return got, launched, fused, st
+        finally:
+            await broker.stop()
+
+    got, launched, fused, st = asyncio.run(asyncio.wait_for(run(), timeout=120.0))
+    assert got == want
+    assert launched > 0 and fused > 0
+    assert st["routing_failover_state"] == 0 and st["routing_failovers"] == 0
+
+
+@pytest.mark.cuda
+def test_kernel_build_failure_refuses_the_start(cuda, tmp_path, monkeypatch):
+    """A words kernel source that does not build refuses the router and the
+    broker's ``--router xla`` context at construction, before any publish."""
+    import rmqtt_tpu_torch.ops._build as B
+
+    bad = tmp_path / "match_words.cu"
+    bad.write_text("this is not CUDA\n")
+    monkeypatch.setattr(B, "SOURCE", bad)
+    monkeypatch.setattr(B, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(B, "_LOADED", None)
+    with pytest.raises(B.KernelError, match="nvcc failed"):
+        TorchRouter(device=cuda)
+    with pytest.raises(B.KernelError, match="nvcc failed"):
+        ServerContext(BrokerConfig(router="xla"))
