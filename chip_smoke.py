@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``rmqtt_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py            # cfg3 scale: 1M filters, 32,768 topics
+    python3 chip_smoke.py            # cfg3 scale: 1M filters, 32,768 topics;
+                                     # cfg5's retained side: 1M retained draws
 
 Phases, each of which fails the run (nonzero exit, no result line):
 
 1. device — requires CUDA; prints the card's name and power limit;
-2. build — compiles ``rmqtt_tpu_torch/csrc/match_words.cu`` with nvcc and
-   prints the build time and the ptxas register / shared-memory / spill
-   lines;
+2. build — compiles ``rmqtt_tpu_torch/csrc/*.cu`` (the match-words and the
+   retained-scan kernels) with one nvcc call and prints the build time and
+   the ptxas register / shared-memory / spill lines;
 3. kernels — each match-words kernel against its plain PyTorch twin
    (``torch.equal``) at cfg3's shapes (B=16384, NC=32) on the real cfg3
    table and on random tiles, plus edge cases (odd B, NC=1, padded topics,
@@ -20,43 +21,65 @@ Phases, each of which fails the run (nonzero exit, no result line):
    NC=32, and the kernel at the NC split's bucket shapes of that batch
    (their per-batch sum) and on a small set of tiles; bounds at the FP32 and
    the integer rate;
+3r. retained kernels — the gather and the full-stream retained-scan kernels
+   against their twins (``torch.equal``) at the scanner's real shapes on
+   the 1M-topic retained table (a 64-filter batch of ``run_retained``'s
+   mix), on ``bench/retained_cases.py``'s ``RETAINED_CASES`` (random tiles;
+   NC=1 and 33, B=1 and 3, chunk 0 as padding and repeated, out-of-range
+   ids, int32 tiles, every level range) and on tables of real topics
+   ($SYS rows against wildcard-first filters, a bare ``#``, ``+/#``,
+   filters deeper than ``max_levels``, a vocabulary past 0x7FFF); timed
+   with CUDA events beside their bounds;
 4. cfg3 end to end through ``TorchRouter`` on packed tiles: 1M ``gen_mixed``
    filters (seed 0), 32,768 ``gen_topics_uniform`` topics in batches of
    16,384, pipelined (depth 2) and serial; a 2,048-topic sample checked
    against the ``TopicTree`` oracle, every topic against the same router
    path run with the plain words twin on the card; 2,000 removes + 2,000
    adds (delta uploads), then the sample again;
+4r. cfg5's retained side through ``PartitionedRetainedScanner``: every
+   filter of the 512-filter mix in batches of 64 (kernels), equal to the
+   same scanner with the plain twins on the card; a 64-filter sample with
+   every broad filter equal to the ``RetainTree`` oracle; scans/s alone and
+   interleaved with 1,024-topic publish batches on phase 4's router
+   (``run_retained``'s pattern, 8 rounds), and publish topics/s there;
 5. the same topics through a ``TorchRouter`` on legacy tiles
    (``RMQTT_PACKED=0``), equal to phase 4's results;
 6. the broker: ``python -m rmqtt_tpu_torch.broker --router xla`` as a child
    process with ``RMQTT_HYBRID_MAX=0`` (every batch on the device), driven
    over TCP by the load client of ``bench/mqtt_load.py``. 6a: 64 subscriber
    connections subscribe the 1M filters (dealt round-robin, SUBSCRIBE
-   packets of 1,000), 4 publishers publish the 32,768 topics at QoS 0 with
-   unique payloads; what the subscribers receive must equal, as a multiset
-   of (client, topic, payload), what the port's ``DefaultRouter`` resolves
-   for the same subscriptions, and ``/api/v1/stats`` must show every batch
-   on the device. 6b: ``device.dispatch`` armed with ``times(4,error)``
-   over ``PUT /api/v1/failpoints``, a wave of 1,000 topics: deliveries still
-   equal the oracle, the breaker opens, then closes with a full re-upload,
-   and the next wave is served by the device. 6c: the round trip of 200
-   lone publishes, on this broker and on a second one started with the
-   default hybrid (both hold the same 1M subscriptions);
+   packets of 1,000), 4 publishers publish the first ``--wave`` (8,192) of
+   the topics at QoS 0 with unique payloads; what the subscribers receive
+   must equal, as a multiset of (client, topic, payload), what the port's
+   ``DefaultRouter`` resolves for the same subscriptions, and
+   ``/api/v1/stats`` must show every batch on the device. 6b:
+   ``device.dispatch`` armed with ``times(4,error)`` over ``PUT
+   /api/v1/failpoints``, a wave of 1,000 topics: deliveries still equal the
+   oracle, the breaker opens, then closes with a full re-upload, and the
+   next wave is served by the device. 6c: the round trip of 200 lone
+   publishes, on this broker and on a second one started with the default
+   hybrid (both hold the same 1M subscriptions). 6d: a third broker with
+   ``[retain] tpu = true`` (default threshold 50,000): 8 connections publish
+   60,000 retained messages (the first 60,000 cfg5 topics, unique
+   payloads), then 64 subscribers each SUBSCRIBE one filter of the mix; the
+   replay must equal, as a multiset, what ``RetainTree`` gives, through the
+   retained kernels, with no message dropped;
 7. one pipelined packed-tile pass under ``torch.profiler``: the device's
    busy share and its time by kernel;
-8. the kernel summary line (launches on the router paths and in the
-   broker, equality with the plain twins, times beside the bound).
+8. the kernel summary line (launches on each main path, equality with the
+   plain twins, times beside the bound).
 
-The tables and the ``TopicTree`` oracle are built before phase 3, and the
-garbage collector is then frozen, as ``bench.py`` does for the same tables.
-The last line is ``{"ok": true, "device": {...}}``. Sizes can be cut with
-the options (for a quick look); the defaults are cfg3's.
+The tables and the oracles are built before the phases that use them, and
+the garbage collector is then frozen, as ``bench.py`` does for the same
+tables. The last line is ``{"ok": true, "device": {...}}``. Sizes can be cut
+with the options (for a quick look); the defaults are cfg3's and cfg5's.
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import collections
 import gc
 import json
 import os
@@ -79,10 +102,15 @@ from rmqtt_tpu_torch.bench.mqtt_load import (LoadClient, connect_and_subscribe,
 from rmqtt_tpu_torch.bench.words_cases import (EDGE_CASES, make_case,
                                                random_legacy_tiles,
                                                random_packed_tiles, random_topics)
-from rmqtt_tpu_torch.bench.workloads import gen_mixed, gen_topics_uniform
-from rmqtt_tpu_torch.core.trie import TopicTree
+from rmqtt_tpu_torch.bench.retained_cases import (RETAINED_CASES, TABLE_FILTERS,
+                                                  make_retained_case, table_inputs,
+                                                  table_topics)
+from rmqtt_tpu_torch.bench.workloads import (gen_mixed, gen_retained_topics,
+                                             gen_topics_uniform, retained_sub_filters)
+from rmqtt_tpu_torch.core.trie import RetainTree, TopicTree
 from rmqtt_tpu_torch.ops import match_words as MW
-from rmqtt_tpu_torch.ops._build import SOURCE, kernel_library
+from rmqtt_tpu_torch.ops import retained_part as RP
+from rmqtt_tpu_torch.ops._build import SOURCES, kernel_library
 from rmqtt_tpu_torch.ops.encode import PackedLayout
 from rmqtt_tpu_torch.ops.partitioned import split_buckets
 from rmqtt_tpu_torch.router import Id, SubscriptionOptions, TorchRouter
@@ -91,10 +119,17 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 SCALAR_OPS_PER_S = 67e12  # H100 SXM non-tensor FP32 rate (an FMA counts as two)
 INT_OPS_PER_S = 64 * 132 * 1.98e9  # integer pipe: 64 ops/clk/SM, 132 SMs, 1.98 GHz
 SMALL_SET = 64  # tiles: 64 KB packed, 176 KB legacy int16 (an SM's L1 is 256 KB)
-KERNEL_SOURCE = "rmqtt_tpu_torch/csrc/match_words.cu"
+KERNEL_SOURCE = {
+    "match_words_packed": "rmqtt_tpu_torch/csrc/match_words.cu",
+    "match_words_legacy": "rmqtt_tpu_torch/csrc/match_words.cu",
+    "retained_scan_gather": "rmqtt_tpu_torch/csrc/retained_scan.cu",
+    "retained_scan_full": "rmqtt_tpu_torch/csrc/retained_scan.cu",
+}
 REPLACES = {
     "match_words_packed": "rmqtt_tpu/ops/pallas_match.py:288",
     "match_words_legacy": "rmqtt_tpu/ops/pallas_match.py:141",
+    "retained_scan_gather": "rmqtt_tpu/ops/retained_part.py:181",
+    "retained_scan_full": "rmqtt_tpu/ops/retained_part.py:234",
 }
 
 
@@ -125,6 +160,18 @@ class GcTime:
 
 
 GC_TIME = GcTime()
+
+
+PHASE_S: dict = {}  # wall seconds of each phase, printed at the end
+
+
+def timed(name: str, fn, *args):
+    """``fn(*args)``, its wall time kept in :data:`PHASE_S` under ``name``."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        PHASE_S[name] = time.perf_counter() - t0
 
 
 def time_cuda(fn, reps: int, warmup: int = 2) -> float:
@@ -198,7 +245,8 @@ def phase_device() -> dict:
 def phase_build() -> None:
     t0 = time.perf_counter()
     lib = kernel_library()
-    log(f"[2] build: {SOURCE.name} -> {lib.path.name} in {lib.build_s:.2f}s "
+    log(f"[2] build: {' + '.join(p.name for p in SOURCES)} -> {lib.path.name} in "
+        f"{lib.build_s:.2f}s "
         f"(load {time.perf_counter() - t0:.2f}s)")
     for line in lib.log.splitlines():
         if any(k in line for k in ("registers", "spill", "smem", "stack frame",
@@ -352,6 +400,257 @@ def phase_kernels(packed_router: TorchRouter, legacy_router: TorchRouter,
             f"FP32 rate, {s['bound_int_ms']:.4f} ms at the integer rate) over "
             f"{s['cases']} equal cases")
     return stats
+
+
+# ---------------------------------------------------------- phase 3r, 4r
+RETAINED_BATCH = 64  # run_retained's scan batch
+RETAINED_ROUNDS = 8  # run_retained's rounds
+PUBLISH_BATCH = 1024  # run_retained's publish batch
+RETAINED_PAIRS = {
+    "gather": (RP.retained_scan_gather, RP.retained_scan_words_plain),
+    "full": (RP.retained_scan_full, RP.retained_scan_full_plain),
+}
+
+
+def retained_bound_ms(tiles, fields, chunk_ids=None):
+    """Least time for one retained-scan call on these inputs, reckoned as
+    :func:`words_bound_ms` does, counting only what a row test needs. Bytes:
+    of each tile it must test (gather: the distinct nonzero ids, chunk 0
+    being the empty chunk that pads every list; full: the tiles that hold a
+    live row) the rows its filters read — rlen; flags if one of them starts
+    with a wildcard (the ``$`` check); the token rows of their literal
+    (non-``+``) levels within their prefix — then the filter fields and ids
+    read once and the words written once, over the memory rate.
+    Operations: each test of a real filter (``flen != -2``) against a live
+    row (``rlen >= 1``) costs ~6 plus 2 per literal level of the filter,
+    over the FP32 and the integer rates. → (bound ms, "bytes" or
+    "operations", the bound with the operations at the integer rate)."""
+    lvl = tiles.shape[1] - 3
+    row_bytes = tiles.shape[2] * tiles.element_size()
+    ftok, flen, fprefix, _fhash, fwild = fields
+    real_f = flen != -2
+    lit = ((torch.arange(lvl, device=ftok.device)[None, :] < fprefix[:, None])
+           & (ftok != RP.PLUS_TOK) & real_f[:, None])  # [B, L]
+    # per filter, the rows a test of it reads: its literal token rows,
+    # rlen, flags
+    need = torch.cat([lit, real_f[:, None], ((fwild != 0) & real_f)[:, None]], dim=1)
+    op_f = (6 + 2 * lit.sum(dim=1)) * real_f  # operations per row test
+    live_n = (tiles[:, lvl, :] >= 1).sum(dim=1)  # live rows per tile
+    in_bytes = sum(f.numel() * 4 for f in fields)
+    if chunk_ids is None:
+        rows_read = int(need.any(dim=0).sum()) * int((live_n > 0).sum())
+        ops = int(live_n.sum()) * int(op_f.sum())
+        out_words = ftok.shape[0] * tiles.shape[0] * RP.WORDS_PER_CHUNK
+    else:
+        ids = chunk_ids.long()
+        real = (ids != 0) & real_f[:, None]
+        # a tile is read once per row whichever of its slots need the row
+        rows_read = sum(torch.unique(ids[real & need[:, r:r + 1]]).numel()
+                        for r in range(need.shape[1]))
+        ops = int((live_n[ids] * op_f[:, None])[real].sum())
+        in_bytes += chunk_ids.numel() * 4
+        out_words = chunk_ids.numel() * RP.WORDS_PER_CHUNK
+    nbytes = rows_read * row_bytes + in_bytes + out_words * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / SCALAR_OPS_PER_S * 1e3
+    t_int = ops / INT_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"),
+            max(t_bytes, t_int))
+
+
+def _retained_args(tiles, arrs, dev):
+    """One tier's arguments on ``dev``: the tiles (numpy or already there)
+    and its numpy inputs."""
+    t = tiles if isinstance(tiles, torch.Tensor) else torch.from_numpy(tiles).to(dev)
+    return (t, *(_put(a, dev) for a in arrs))
+
+
+def _both_tier_batch(scanner, filters):
+    """The first 64-filter slice of the mix whose plan has both tiers."""
+    for lo in range(0, len(filters) - RETAINED_BATCH + 1, RETAINED_BATCH):
+        st, tiers, _ = scanner.plan(filters[lo:lo + RETAINED_BATCH])
+        if len(tiers) == 2:
+            return lo, st, tiers
+    raise AssertionError("no 64-filter slice of the mix has both tiers")
+
+
+def phase_retained_kernels(scanner, filters, dev) -> dict:
+    """Both retained kernels against their plain twins; timings at the
+    scanner's real shapes on the 1M-topic table."""
+    log("[3r] retained kernels against their plain twins")
+    stats = {"retained_scan_gather": {}, "retained_scan_full": {}}
+    lo, st, tiers = _both_tier_batch(scanner, filters)
+    for mode, arrs, nc in tiers:
+        name = f"retained_scan_{mode}"
+        s = stats[name]
+        kern, plain = RETAINED_PAIRS[mode]
+        args = _retained_args(st.rows, arrs, dev)
+        b = arrs[0].shape[0]
+        shape = f"B={b} NC={nc}" if mode == "gather" else f"B={b} over {nc} tiles"
+        _compare(f"{name} real 1M table, filters {lo}..{lo + RETAINED_BATCH - 1} "
+                 f"of the mix, {shape}", kern, plain, args, s)
+        s["ms"] = time_cuda(lambda: kern(*args), reps=50)
+        s["graph_ms"] = time_graph(lambda: kern(*args), reps=10)
+        s["plain_ms"] = time_cuda(lambda: plain(*args), reps=3, warmup=1)
+        s["bound_ms"], s["bound_by"], s["bound_int_ms"] = retained_bound_ms(
+            st.rows, args[1:6], args[6] if mode == "gather" else None)
+        s["shape"] = shape
+        log(f"    {name}: {s['ms']:.4f} ms at {shape} ({s['graph_ms']:.4f} ms by "
+            f"graph replay), plain {s['plain_ms']:.3f} ms, bound {s['bound_ms']:.4f} ms "
+            f"by {s['bound_by']} ({s['bound_int_ms']:.4f} ms at the integer rate)")
+    for case in RETAINED_CASES:
+        tiles, fields, ids, bad, pids = make_retained_case(case)
+        kern, plain = RETAINED_PAIRS[case.tier]
+        if case.tier == "full":
+            args = _retained_args(tiles, fields, dev)
+        else:
+            args = _retained_args(tiles, (*fields, ids), dev)
+            if bad is not None:
+                args = (args, (*args[:6], _put(pids, dev)))
+        _compare(f"retained {case.name}", kern, plain, args,
+                 stats[f"retained_scan_{case.tier}"], bad)
+    # tables of real topics: $SYS rows, a bare '#', '+/#', deep filters;
+    # then a vocabulary past 0x7FFF (int32 tiles)
+    rng = np.random.default_rng(4)
+    for kind in ("dollar", "wide"):
+        table = RP.RetainedTable()
+        for t in table_topics(kind, rng):
+            table.add(t)
+        cpu = RP.PartitionedRetainedScanner(table, device="cpu")
+        for nc in (None, 33, 1):
+            tiles, gather, full = table_inputs(cpu, TABLE_FILTERS, nc)
+            tiles_d = torch.from_numpy(tiles).to(dev)
+            for mode, arrs in (("gather", gather), ("full", full)):
+                if mode == "full" and nc is not None:
+                    continue
+                _compare(f"retained {mode} table '{kind}' {tiles.dtype} "
+                         f"B={arrs[0].shape[0]}" + (f" NC={arrs[5].shape[1]}"
+                                                    if mode == "gather" else ""),
+                         *RETAINED_PAIRS[mode], _retained_args(tiles_d, arrs, dev),
+                         stats[f"retained_scan_{mode}"])
+    for name, s in stats.items():
+        log(f"    {name}: {s['cases']} equal cases")
+    return stats
+
+
+def build_retained(topics, dev):
+    """The 1M-draw retained table (fids in draw order), its scanner on the
+    card and the ``RetainTree`` oracle (value = fid)."""
+    t0 = time.perf_counter()
+    table = RP.RetainedTable()
+    for t in topics:
+        table.add(t)
+    t1 = time.perf_counter()
+    scanner = RP.PartitionedRetainedScanner(table, device=dev)
+    scanner._refresh()
+    t2 = time.perf_counter()
+    tree = RetainTree()
+    for fid, t in enumerate(topics):
+        tree.insert(t, fid)
+    log(f"    retained table: {len(topics)} topics, {table.nchunks} chunks (tiles "
+        f"{tuple(scanner._dev.rows.shape)} {scanner._dev.rows.dtype}), built in "
+        f"{t1 - t0:.2f}s, compacted + uploaded in {t2 - t1:.2f}s; RetainTree "
+        f"oracle in {time.perf_counter() - t2:.2f}s")
+    return table, scanner, tree
+
+
+def _scan_all(scanner, filters):
+    """Every filter, in batches of 64 → (results, per-batch (submit ms,
+    complete ms, matched fids))."""
+    out, times = [], []
+    for lo in range(0, len(filters), RETAINED_BATCH):
+        t0 = time.perf_counter()
+        h = scanner.scan_submit(filters[lo:lo + RETAINED_BATCH])
+        t1 = time.perf_counter()
+        res = scanner.scan_complete(h)
+        times.append(((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3,
+                      sum(len(r) for r in res)))
+        out.extend(res)
+    return out, times
+
+
+def phase_retained_scanner(table, scanner, tree, filters, router, pub_topics) -> dict:
+    """→ the numbers of cfg5's retained side (``launches``: each retained
+    kernel's launches over the kernel-path passes, counted from zero)."""
+    log("[4r] cfg5's retained side through PartitionedRetainedScanner")
+    out: dict = {}
+    RP.retained_scan_gather.launches = 0
+    RP.retained_scan_full.launches = 0
+    kern_res, times = _scan_all(scanner, filters)
+    log(f"    all {len(filters)} filters in batches of {RETAINED_BATCH}: per batch "
+        f"submit / complete ms and matched fids "
+        f"{[(round(a, 3), round(b, 3), n) for a, b, n in times]}")
+    # run_retained's interleave against phase 4's resident cfg3 router
+    m = router.matcher
+    sb, pb = RETAINED_BATCH, PUBLISH_BATCH
+
+    def scan_slice(r):
+        lo = (r * sb) % (len(filters) - sb)
+        return filters[lo:lo + sb]
+
+    scanner.scan(filters[:sb])
+    m.match(pub_topics[:pb])  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in range(RETAINED_ROUNDS):
+        ph = m.match_submit(pub_topics[r * pb:(r + 1) * pb])
+        sh = scanner.scan_submit(scan_slice(r))
+        m.match_complete(ph)
+        scanner.scan_complete(sh)
+    total = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    split = []
+    for r in range(RETAINED_ROUNDS):
+        ta = time.perf_counter()
+        h = scanner.scan_submit(scan_slice(r))
+        tb = time.perf_counter()
+        scanner.scan_complete(h)
+        split.append(((tb - ta) * 1e3, (time.perf_counter() - tb) * 1e3))
+    scan_only = time.perf_counter() - t1
+    out["launches"] = {"retained_scan_gather": RP.retained_scan_gather.launches,
+                       "retained_scan_full": RP.retained_scan_full.launches}
+    out.update(publish_topics_per_s=RETAINED_ROUNDS * pb / total,
+               scans_per_s_interleaved=RETAINED_ROUNDS * sb / total,
+               scans_per_s_alone=RETAINED_ROUNDS * sb / scan_only)
+    log(f"    {card_line()}: interleaved ({RETAINED_ROUNDS} rounds of {pb} publish "
+        f"topics + {sb} filters) {total * 1e3:.3f} ms: "
+        f"{out['scans_per_s_interleaved']:.1f} scans/s, "
+        f"{out['publish_topics_per_s']:.1f} publish topics/s; scan only "
+        f"{scan_only * 1e3:.3f} ms: {out['scans_per_s_alone']:.1f} scans/s "
+        f"(per batch submit / complete ms "
+        f"{[(round(a, 3), round(b, 3)) for a, b in split]}); launches {out['launches']}")
+    # the same scanner with the plain twins on the card
+    scanner.use_kernel = False
+    try:
+        plain_res, _ = _scan_all(scanner, filters)
+    finally:
+        scanner.use_kernel = True
+    for f, a, b in zip(filters, kern_res, plain_res):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"retained kernel path vs plain path differ on "
+                                 f"{f!r}: {len(a)} vs {len(b)} fids")
+    log(f"    all {len(set(filters))} distinct filters equal to the plain-twin path "
+        f"on the card ({sum(len(r) for r in kern_res)} fids)")
+    # a 64-filter sample holding every broad filter of the mix, against the
+    # RetainTree oracle
+    broad_floor = max(16, int(table.nchunks * scanner.BROAD_FRAC))
+    distinct = list(dict.fromkeys(filters))
+    res_of = dict(zip(filters, kern_res))
+    broad = [f for f in distinct if len(table.candidates_for_filter(f)) > broad_floor]
+    narrow = [f for f in distinct if f not in broad]
+    if len(broad) < 4:
+        raise AssertionError(f"the mix has {len(broad)} broad filters, want >= 4")
+    sample = (broad + narrow)[:RETAINED_BATCH]
+    t0 = time.perf_counter()
+    for f in sample:
+        want = np.sort(np.fromiter((fid for _lv, fid in tree.matches(f)), dtype=np.int64))
+        if not np.array_equal(res_of[f], want):
+            raise AssertionError(f"retained scan of {f!r}: {len(res_of[f])} fids, "
+                                 f"RetainTree {len(want)}")
+    log(f"    sample of {len(sample)} filters ({len(broad)} broad: {broad[:6]}...) equal to "
+        f"the RetainTree oracle ({sum(len(res_of[f]) for f in sample)} fids; oracle "
+        f"{time.perf_counter() - t0:.2f}s)")
+    return out
 
 
 # ------------------------------------------------------------- phase 4, 5
@@ -585,15 +884,17 @@ class BrokerProcess:
     with ``[http_api]`` on a port of its own; its output goes to a log file
     in ``workdir``. ``stop`` ends it (``main``'s ``finally``)."""
 
-    def __init__(self, name: str, workdir: Path, env: dict) -> None:
+    def __init__(self, name: str, workdir: Path, env: dict, toml: str = "") -> None:
         self.name = name
         self.port, self.http_port = _free_port(), _free_port()
         cfg = workdir / f"{name}.toml"
         cfg.write_text(
             '[listener]\nhost = "127.0.0.1"\n'
             f'[http_api]\nhost = "127.0.0.1"\nport = {self.http_port}\n'
-            # no queue-full drops: every delivery is checked
-            "[mqtt]\nmax_mqueue = 100000000\n")
+            # no queue-full drops: every delivery is checked (the default
+            # session queue holds 1,000, and a retained replay is enqueued
+            # at once)
+            "[mqtt]\nmax_mqueue = 100000000\n" + toml)
         self.log_path = workdir / f"{name}.log"
         self._log = open(self.log_path, "wb")
         full_env = {**os.environ, **env, "PYTHONFAULTHANDLER": "1",
@@ -644,6 +945,10 @@ class BrokerProcess:
         """The broker's ``/api/v1/stats`` gauges."""
         (node,) = self._http("GET", "/api/v1/stats")
         return node["stats"]
+
+    def metrics(self) -> dict:
+        """The broker's ``/api/v1/metrics`` counters."""
+        return self._http("GET", "/api/v1/metrics")["metrics"]
 
     def set_failpoints(self, specs: dict) -> None:
         self._http("PUT", "/api/v1/failpoints", specs)
@@ -832,17 +1137,18 @@ async def _broker_drive(dev_broker, hybrid_broker, subs, waves) -> dict:
     return out
 
 
-def phase_broker(filters, topics, seed: int) -> dict:
-    """Phase 6 → its numbers (``launches_packed``: the words kernel's
+def phase_broker(filters, topics, seed: int, wave: int) -> dict:
+    """Phase 6a-c → their numbers (``launches_packed``: the words kernel's
     launches in the broker process over 6a, from its stats before and
-    after the wave)."""
+    after the wave of the first ``wave`` topics)."""
     log("[6] the broker: python -m rmqtt_tpu_torch.broker --router xla")
     t0 = time.perf_counter()
     subs = {f"s{k}": filters[k::BROKER_SUBSCRIBERS] for k in range(BROKER_SUBSCRIBERS)}
     oracle = oracle_router(subs)
     rng = random.Random(seed + 2)
     waves = []
-    for name, tops in (("cfg3", topics), ("fail", gen_topics_uniform(rng, FAULT_WAVE)),
+    for name, tops in (("cfg3", topics[:wave]),
+                       ("fail", gen_topics_uniform(rng, FAULT_WAVE)),
                        ("next", gen_topics_uniform(rng, FAULT_WAVE))):
         payloads = [b"%s-%d" % (name.encode(), i) for i in range(len(tops))]
         waves.append((tops, payloads, expected_deliveries(oracle, tops, payloads)))
@@ -879,6 +1185,155 @@ def phase_broker(filters, topics, seed: int) -> dict:
     return out
 
 
+RETAINED_BROKER_TOPICS = 60_000  # 6d: retained messages, past the 50,000 threshold
+RETAINED_PUBLISHERS = 8
+RETAINED_SUBSCRIBERS = 64
+RETAINED_INGEST_S = 120.0  # 6d: the limit on storing the retained messages
+RETAINED_PACE = 256  # 6d: publishes a connection sends between PINGREQ round trips
+
+
+def proc_cpu_s(pid: int) -> float:
+    """CPU seconds (user + system) process ``pid`` has used, from /proc."""
+    with open(f"/proc/{pid}/stat") as f:
+        fields = f.read().rsplit(")", 1)[1].split()
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+def _retained_delta(before: dict, after: dict) -> dict:
+    keys = ("retained_scans", "retained_scan_launches_gather",
+            "retained_scan_launches_full")
+    return {k: after[k] - before[k] for k in keys}
+
+
+async def _retained_drive(broker, topics, payloads, filters, want) -> dict:
+    """6d against the running broker → its numbers."""
+    out: dict = {}
+    loop = asyncio.get_running_loop()
+
+    async def stats():
+        return await loop.run_in_executor(None, broker.stats)
+
+    pubs = [await LoadClient.connect(broker.port, f"rpub{k}")
+            for k in range(RETAINED_PUBLISHERS)]
+    s_pre = await stats()
+    cpu0 = proc_cpu_s(broker.proc.pid)
+    t0 = time.perf_counter()
+
+    async def run(k: int, pub: LoadClient) -> None:
+        for n, i in enumerate(range(k, len(topics), len(pubs))):
+            pub.publish(topics[i], payloads[i], retain=True)
+            if n % RETAINED_PACE == RETAINED_PACE - 1:
+                # flow control: the broker has read what this connection
+                # sent before it sends more. A publisher that runs a whole
+                # socket buffer ahead of the broker stalls on the card's
+                # host at ~10 publishes/s a connection (PERF.md §7).
+                await pub.ping(RETAINED_INGEST_S)
+        await pub.ping(RETAINED_INGEST_S)
+
+    await asyncio.gather(*(run(k, p) for k, p in enumerate(pubs)))
+    while (s0 := await stats())["retaineds"] < len(topics):
+        if time.perf_counter() - t0 > RETAINED_INGEST_S:
+            raise AssertionError(f"6d: {s0['retaineds']} of {len(topics)} retained")
+        await asyncio.sleep(0.1)
+    out["publish_s"] = time.perf_counter() - t0
+    out["ingest_cpu_s"] = proc_cpu_s(broker.proc.pid) - cpu0
+    log(f"    6d: {len(topics)} retained publishes stored in {out['publish_s']:.3f} s "
+        f"({len(topics) / out['publish_s']:.1f} publishes/s) by "
+        f"{RETAINED_PUBLISHERS} connections, each pausing for a PINGREQ round trip "
+        f"every {RETAINED_PACE}; the broker's CPU time {out['ingest_cpu_s']:.2f} s")
+    _log_split(s_pre, s0, out["publish_s"])
+    m0 = await loop.run_in_executor(None, broker.metrics)
+    per_client = collections.Counter()
+    for (cid, _t, _p), n in want.items():
+        per_client[cid] += n
+    subs = [await LoadClient.connect(broker.port, f"rsub{j}")
+            for j in range(len(filters))]
+    # the first SUBSCRIBE alone: its lookup builds the device mirror of the
+    # whole store on the broker's event loop
+    t0 = time.perf_counter()
+    await subs[0].subscribe([filters[0]])
+    out["first_suback_s"] = time.perf_counter() - t0
+    await subs[0].wait_count(per_client[subs[0].client_id], 300.0)
+    out["first_replay_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    await asyncio.gather(*(c.subscribe([f]) for c, f in zip(subs[1:], filters[1:])))
+    await asyncio.gather(*(c.wait_count(per_client[c.client_id], 600.0)
+                           for c in subs[1:]))
+    out["rest_replay_s"] = time.perf_counter() - t0
+    await asyncio.sleep(0.5)  # a quiet window for extras
+    got = collections.Counter()
+    for c in subs:
+        for topic, payload, _t in c.received:
+            got[(c.client_id, topic, payload)] += 1
+    s1 = await stats()
+    m1 = await loop.run_in_executor(None, broker.metrics)
+    for c in [*pubs, *subs]:
+        await c.close()
+    out["deliveries"] = sum(got.values())
+    out["delta"] = _retained_delta(s0, s1)
+    out["mirror_build_ms"] = s1["retained_mirror_build_ms"]
+    out["retaineds"] = s1["retaineds"]
+    out["drops"] = {k: m1.get(k, 0) - m0.get(k, 0) for k in m1
+                    if k.startswith("messages.dropped") or k == "overload.retained_scans_paused"}
+    out["got"] = got
+    return out
+
+
+def phase_retained_broker(retained_topics, filters) -> dict:
+    """6d → its numbers (``delta``: the broker's retained-scan counters
+    across the subscribes, from ``/api/v1/stats``)."""
+    log("[6d] the broker's retained replay: [retain] tpu = true")
+    topics = retained_topics[:RETAINED_BROKER_TOPICS]
+    filters = filters[:RETAINED_SUBSCRIBERS]
+    payloads = [b"r%d" % i for i in range(len(topics))]
+    oracle = RetainTree()
+    for i, t in enumerate(topics):
+        oracle.insert(t, i)
+    want = collections.Counter()
+    for j, f in enumerate(filters):
+        for _lv, i in oracle.matches(f):
+            want[(f"rsub{j}", topics[i], payloads[i])] += 1
+    del oracle
+    # the client loop below allocates per publish: the ~0.6M expected
+    # replays must not be rescanned by every full collection it triggers
+    gc.collect()
+    gc.freeze()
+    log(f"    RetainTree oracle: {len(topics)} retained topics, {len(filters)} "
+        f"subscriber filters, {sum(want.values())} replayed messages expected")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_retain_") as tmp:
+        broker = BrokerProcess("retain", Path(tmp), {}, "[retain]\ntpu = true\n")
+        try:
+            broker.wait_ready()
+            out = asyncio.run(_retained_drive(broker, topics, payloads, filters, want))
+        except BaseException:
+            broker.abort_with_stacks()
+            log(f"    --- broker {broker.name} log (tail) ---\n{broker.tail(120)}")
+            raise
+        finally:
+            broker.stop()
+    got = out.pop("got")
+    if got != want:
+        missing, extra = want - got, got - want
+        raise AssertionError(
+            f"6d: the retained replay differs from the RetainTree oracle: "
+            f"{sum(missing.values())} missing (e.g. {list(missing)[:3]}), "
+            f"{sum(extra.values())} extra (e.g. {list(extra)[:3]})")
+    d = out["delta"]
+    if d["retained_scans"] != len(filters) or d["retained_scan_launches_gather"] <= 0 \
+            or d["retained_scan_launches_full"] <= 0:
+        raise AssertionError(f"6d: not every lookup ran on the retained kernels: {d}")
+    if any(out["drops"].values()):
+        raise AssertionError(f"6d: messages dropped: {out['drops']}")
+    log(f"    6d: first SUBSCRIBE: SUBACK after {out['first_suback_s']:.3f} s, replay done "
+        f"after {out['first_replay_s']:.3f} s (mirror build "
+        f"{out['mirror_build_ms']:.3f} ms on the event loop); the other "
+        f"{len(filters) - 1} subscribers' replays in {out['rest_replay_s']:.3f} s; "
+        f"{out['deliveries']} replayed messages equal to the RetainTree oracle "
+        f"(multiset of client, topic, payload); scans {d}; drops {out['drops']}")
+    log(f"    {card_line()}")
+    return out
+
+
 def phase_profile(router: TorchRouter, topics, batch: int) -> None:
     """One pipelined pass through the packed-tile router under the profiler,
     after every timed pass (the profiler adds host overhead)."""
@@ -899,6 +1354,11 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=16_384)
     ap.add_argument("--sample", type=int, default=2_048)
     ap.add_argument("--churn", type=int, default=2_000)
+    ap.add_argument("--retained", type=int, default=1_000_000,
+                    help="cfg5 retained draws of phases 3r and 4r")
+    ap.add_argument("--wave", type=int, default=8_192,
+                    help="publishes of the broker's wave 6a (host-bound at 1-4 "
+                         "topics a batch: per-batch numbers need no more)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -913,7 +1373,11 @@ def main(argv=None) -> int:
     rng = random.Random(args.seed)
     filters = gen_mixed(rng, args.filters)
     topics = gen_topics_uniform(rng, args.topics)
-    log(f"    workload: {len(filters)} filters, {len(topics)} topics generated in "
+    retained_topics = gen_retained_topics(random.Random(args.seed + 5), args.retained)
+    sub_filters = retained_sub_filters(random.Random(5))
+    log(f"    workload: {len(filters)} filters, {len(topics)} topics, "
+        f"{len(retained_topics)} retained topics ({args.retained} draws), "
+        f"{len(sub_filters)} subscriber filters generated in "
         f"{time.perf_counter() - t0:.2f}s")
     packed_router = build_router(filters, dev, packed=True)
     legacy_router = build_router(filters, dev, packed=False)
@@ -931,51 +1395,78 @@ def main(argv=None) -> int:
     gc.freeze()
     GC_TIME.install()
 
-    stats = phase_kernels(packed_router, legacy_router, topics, args.batch, dev)
+    stats = timed("3", phase_kernels, packed_router, legacy_router, topics, args.batch, dev)
 
     MW.match_words_packed.launches = 0
     MW.match_words_legacy.launches = 0
-    want_filters = phase_cfg3(packed_router, tree, filters, topics, args.batch,
-                              args.sample, args.churn, args.seed)
+    want_filters = timed("4", phase_cfg3, packed_router, tree, filters, topics, args.batch,
+                         args.sample, args.churn, args.seed)
     launches = {"match_words_packed": MW.match_words_packed.launches,
                 "match_words_legacy": MW.match_words_legacy.launches}
+    del tree
+
+    # cfg5's retained side: the table, its scanner and the oracle, frozen
+    # like the routers before the phases that use them
+    rtable, rscanner, rtree = timed("retained table", build_retained, retained_topics, dev)
+    gc.collect()
+    gc.freeze()
+    stats.update(timed("3r", phase_retained_kernels, rscanner, sub_filters, dev))
+    retained = timed("4r", phase_retained_scanner, rtable, rscanner, rtree, sub_filters,
+                     packed_router, topics)
+    launches.update(retained["launches"])
+    del rtable, rscanner, rtree
 
     MW.match_words_packed.launches = 0
     MW.match_words_legacy.launches = 0
-    phase_legacy(legacy_router, topics, args.batch, want_filters)
+    timed("5", phase_legacy, legacy_router, topics, args.batch, want_filters)
     launches["match_words_legacy"] = MW.match_words_legacy.launches
     for name, n in launches.items():
         if n <= 0:
-            raise AssertionError(f"{name} was never launched on its router path")
-    del legacy_router, tree, want_filters  # the broker phase needs the room
+            raise AssertionError(f"{name} was never launched on its path")
+    del legacy_router, want_filters  # the broker phase needs the room
 
-    # the broker runs in a child process: its launches are the difference
-    # of its own counters (/api/v1/stats) across 6a
-    broker = phase_broker(filters, topics, args.seed)
+    # the brokers run in child processes: their launches are the
+    # differences of their own counters (/api/v1/stats) across 6a and 6d
+    broker = timed("6a-c", phase_broker, filters, topics, args.seed, args.wave)
+    if broker["launches_packed"] <= 0:
+        raise AssertionError("match_words_packed was never launched in the broker")
+    rbroker = timed("6d", phase_retained_broker, retained_topics, sub_filters)
     by_path = {
         "match_words_packed": {"router, phase 4": launches["match_words_packed"],
                                "broker, phase 6a": broker["launches_packed"]},
         "match_words_legacy": {"router with RMQTT_PACKED=0, phase 5":
                                launches["match_words_legacy"]},
     }
-    if broker["launches_packed"] <= 0:
-        raise AssertionError("match_words_packed was never launched in the broker")
-    phase_profile(packed_router, topics, args.batch)
+    for mode in ("gather", "full"):
+        name = f"retained_scan_{mode}"
+        by_path[name] = {"scanner at 1M, phase 4r": launches[name],
+                         "broker, phase 6d":
+                         rbroker["delta"][f"retained_scan_launches_{mode}"]}
+    timed("7", phase_profile, packed_router, topics, args.batch)
 
     kernels = []
     for name, s in stats.items():
-        kernels.append({
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+        row = {
+            "name": name, "route": "cuda", "source": KERNEL_SOURCE[name],
             "replaces": REPLACES[name], "launches": sum(by_path[name].values()),
             "launches_by_path": by_path[name],
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": None,
             "equal_to_plain": True, "cases": s["cases"],
-            "bound_int_ms": s["bound_int_ms"], "small_set_ms": s["small_set_ms"],
-            "bucket_ms_per_batch": sum(ms for *_, ms in s["bucket_ms"]),
-        })
-    log(f"[8] kernels (total run {time.perf_counter() - t_start:.1f}s)")
+            "bound_int_ms": s["bound_int_ms"], "graph_ms": s["graph_ms"],
+        }
+        if "small_set_ms" in s:
+            row.update(small_set_ms=s["small_set_ms"],
+                       bucket_ms_per_batch=sum(ms for *_, ms in s["bucket_ms"]))
+        else:
+            row["shape"] = s["shape"]
+        kernels.append(row)
+    log(f"[8] kernels (total run {time.perf_counter() - t_start:.1f}s; seconds by "
+        f"phase {({k: round(v, 1) for k, v in PHASE_S.items()})}); retained "
+        f"scans/s alone {retained['scans_per_s_alone']:.1f}, interleaved "
+        f"{retained['scans_per_s_interleaved']:.1f} with "
+        f"{retained['publish_topics_per_s']:.1f} publish topics/s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0

@@ -2,8 +2,8 @@
 delivery oracle it is checked against.
 
 ``LoadClient`` connects, subscribes filters in SUBSCRIBE packets of many
-filters, publishes at QoS 0 and records every PUBLISH the broker delivers
-to it. ``expected_deliveries`` resolves the same subscriptions through the
+filters, publishes at QoS 0 (retained or not) and records every PUBLISH the
+broker delivers to it, retained replays included. ``expected_deliveries`` resolves the same subscriptions through the
 port's ``DefaultRouter`` (trie + relations, ``matches`` with its
 ``collapse``): the multiset of (client id, topic, payload) a broker must
 deliver. ``chip_smoke.py`` drives ``python -m rmqtt_tpu_torch.broker`` with
@@ -107,11 +107,11 @@ class LoadClient:
             if bad or len(suback.reason_codes) != len(part):
                 raise RuntimeError(f"{self.client_id}: SUBACK refused {bad[:4]}")
 
-    def publish(self, topic: str, payload: bytes) -> None:
+    def publish(self, topic: str, payload: bytes, retain: bool = False) -> None:
         """Queue one QoS 0 PUBLISH (no ack; ``ping`` waits until the broker
         has read it)."""
         self.writer.write(self.codec.encode(pk.Publish(topic=topic, payload=payload,
-                                                       qos=0)))
+                                                       qos=0, retain=retain)))
 
     async def ping(self, timeout: float = 60.0) -> None:
         """One PINGREQ round trip: the broker has read every packet sent

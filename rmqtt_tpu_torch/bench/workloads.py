@@ -1,9 +1,10 @@
-"""Filter and topic generators of the bench's cfg3/cfg4 workloads.
+"""Filter and topic generators of the bench's cfg3/cfg4/cfg5 workloads.
 
 Copies of ``bench.py``'s ``VOCAB6``, ``_tree_topic``, ``gen_mixed`` and
 ``gen_topics_uniform``, so the port builds the cfg3 stream (1M mixed
 ``+``/``#`` filters over a 6-level topic tree, uniform publish topics)
-without importing the JAX bench. Same generators, same ``random.Random``
+without importing the JAX bench, and of cfg5's retained draw and
+``run_retained``'s subscriber mix. Same generators, same ``random.Random``
 seed → the same filters and topics.
 """
 
@@ -37,3 +38,31 @@ def gen_mixed(rng, n, shared_frac=0.0):
 
 def gen_topics_uniform(rng, n, depth=6):
     return [_tree_topic(rng, depth) for _ in range(n)]
+
+
+def gen_retained_topics(rng, n):
+    """cfg5's retained side (``bench.py``'s ``cfg5``): ``n`` draws of
+    ``_tree_topic(rng, rng.randint(3, 6))``, duplicates dropped. The bench
+    keeps them in a set's order, which changes with the string hash seed;
+    here they stay in the order of their first draw, so a seed gives the
+    same list in every process."""
+    return list(dict.fromkeys(_tree_topic(rng, rng.randint(3, 6)) for _ in range(n)))
+
+
+def retained_sub_filters(rng, n=512):
+    """``run_retained``'s subscriber mix (``bench.py``, with
+    ``random.Random(5)`` there): 70% ``v0_x/v1_y/+`` (half of them with
+    ``/#``), 20% ``v0_x/+/+/#``, 10% one to four ``+`` levels then ``#``."""
+    out = []
+    for _ in range(n):
+        r = rng.random()
+        if r < 0.7:
+            f = f"v0_{rng.randrange(VOCAB6[0])}/v1_{rng.randrange(VOCAB6[1])}/+"
+            if rng.random() < 0.5:
+                f += "/#"
+        elif r < 0.9:
+            f = f"v0_{rng.randrange(VOCAB6[0])}/+/+/#"
+        else:
+            f = "/".join(["+"] * rng.randint(1, 4)) + "/#"
+        out.append(f)
+    return out

@@ -316,9 +316,8 @@ class BrokerConfig:
 def refuse_unported(cfg: BrokerConfig) -> None:
     """Raise ``NotImplementedError`` for a configuration that needs a part
     of the broker not yet ported to ``rmqtt_tpu_torch``, at construction
-    rather than at first use. (``retain_tpu`` raises in ``RetainStore``,
-    plugins and bridges in ``conf.instantiate_plugins``, ``--workers`` in
-    ``server.main``.)"""
+    rather than at first use. (Plugins and bridges raise in
+    ``conf.instantiate_plugins``, ``--workers`` in ``server.main``.)"""
     if cfg.cluster:
         raise NotImplementedError(
             f"[cluster] ({cfg.cluster_mode} mode): the cluster layer is not "
@@ -335,6 +334,7 @@ class ServerContext:
         cfg: Optional[BrokerConfig] = None,
         router: Optional[Router] = None,
         acl: Optional[AclEngine] = None,
+        retain_device=None,
     ) -> None:
         from rmqtt_tpu_torch.broker.shared import SessionRegistry
         from rmqtt_tpu_torch.router.default import DefaultRouter
@@ -418,6 +418,10 @@ class ServerContext:
             max_retained=self.cfg.retain_max,
             tpu=self.cfg.retain_tpu,
             tpu_threshold=self.cfg.retain_tpu_threshold,
+            # the device of the retained-scan mirror: the current CUDA
+            # device unless given (tests pass "cpu"); retain_tpu without
+            # one raises here, so the broker refuses to start
+            device=retain_device,
         )
         # MessageManager seam (message.rs:61-147): the message-storage
         # plugin installs itself here; None = storage disabled (the
@@ -774,6 +778,11 @@ class ServerContext:
             s.in_inflights += len(sess.in_qos2)
         # routing-service gauges (per-exec stats parity, context.rs:506-555)
         for k, v in self.routing.stats().items():
+            setattr(s, k, v)
+        # retained-scan gauges (broker/retain.py device mirror): lookups
+        # served by the scanner, the hand kernels' launches, the mirror's
+        # first build
+        for k, v in self.retain.device_stats().items():
             setattr(s, k, v)
         # overload gauges (broker/overload.py): state + breaker health
         s.overload_state = int(self.overload.state)

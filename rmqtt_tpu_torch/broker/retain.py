@@ -3,14 +3,20 @@
 Mirrors the reference's `RetainStorage` trait + in-memory default
 (`rmqtt/src/retain.rs:100-213`): set (empty payload clears,
 MQTT-3.3.1-10/11), wildcard lookup on SUBSCRIBE, per-message expiry, count
-and max limits. Backed by the CPU ``RetainTree``. The JAX package can switch
-large stores' wildcard lookups to a device scan (``retain_tpu``); that scan
-is not ported yet (ROADMAP Queue A item 10), so ``tpu=True`` raises.
+and max limits. Backed by the CPU ``RetainTree``; with ``tpu=True``, once
+the store grows past ``tpu_threshold`` the wildcard lookup switches to the
+partitioned inverse-match kernels (`rmqtt_tpu_torch.ops.retained_part`)
+over a mirrored chunk-tiled row table on ``device`` — the same pruned
+automaton the router uses. The device is the current CUDA device unless
+one is given; with ``tpu=True``, none given and no CUDA device the store
+refuses to start. A fault of the kernels propagates from ``matches``: the
+lookup never falls back to the tree.
 """
 
 from __future__ import annotations
 
 import hashlib
+import time
 from typing import Dict, List, Optional, Tuple
 
 from rmqtt_tpu_torch.core.topic import filter_valid, topic_valid
@@ -26,15 +32,33 @@ class RetainStore:
         max_payload: int = 1024 * 1024,
         tpu: bool = False,
         tpu_threshold: int = 50_000,
+        device=None,
     ) -> None:
-        if tpu:
-            raise NotImplementedError(
-                "retain_tpu: the retained scan on the device is not ported to "
-                "rmqtt_tpu_torch yet (ROADMAP Queue A item 10)")
         self.enable = enable
         self.max_retained = max_retained
         self.max_payload = max_payload
         self._tree: RetainTree[Message] = RetainTree()
+        self._tpu = tpu
+        self._tpu_threshold = tpu_threshold
+        self._device = None
+        if tpu:
+            from rmqtt_tpu_torch.ops._build import kernel_library
+            from rmqtt_tpu_torch.ops.partitioned import resolve_device
+
+            # the device the mirror will live on, decided now: no CUDA
+            # device (and none given) refuses the start, and so does a
+            # kernel that does not build
+            self._device = resolve_device(device)
+            if self._device.type == "cuda":
+                kernel_library()
+        self._table = None  # lazily-built ops.retained_part.RetainedTable mirror
+        self._scanner = None
+        # device-scan gauges (/api/v1/stats): lookups served by the scanner
+        # and the wall time of the mirror's first build (on the event loop)
+        self.scans = 0
+        self.mirror_build_ms = 0.0
+        self._rowid_by_topic: Dict[str, int] = {}
+        self._msg_by_rowid: Dict[int, Tuple[str, Message]] = {}
         # cluster hook: called as on_set(topic, msg_or_None) after a local
         # mutation (broadcast-mode retain_set_broadcast analogue)
         self.on_set = None
@@ -62,7 +86,8 @@ class RetainStore:
         if not topic_valid(topic):
             # a wildcard/invalid publish topic (reachable via the HTTP API,
             # which skips the wire codec's validation) must be refused, not
-            # stored as a topic no subscription can name
+            # half-inserted: the TPU mirror rejects wildcard rows and the
+            # tree would diverge from it permanently
             return False
         if not msg.payload:  # empty payload clears (MQTT-3.3.1-10)
             self.remove_local(topic)
@@ -73,11 +98,14 @@ class RetainStore:
             return False
         self._tree.insert(topic, msg)
         self._rev += 1
+        if self._tpu:
+            self._set_row(topic, msg)
         return True
 
     def remove_local(self, topic: str) -> None:
         self._tree.remove(topic)
         self._rev += 1
+        self._drop_row(topic)
 
     def all_items(self) -> List[Tuple[str, Message]]:
         """Every retained (topic, message), including ``$``-topics."""
@@ -94,7 +122,10 @@ class RetainStore:
         """All retained (topic, message) matching a new subscription's filter."""
         if not self.enable or not filter_valid(topic_filter):
             return []
-        out = [("/".join(levels), msg) for levels, msg in self._tree.matches(topic_filter)]
+        if self._tpu and self.count() >= self._tpu_threshold:
+            out = self._matches_tpu(topic_filter)
+        else:
+            out = [("/".join(levels), msg) for levels, msg in self._tree.matches(topic_filter)]
         fresh = []
         for topic, msg in out:
             if msg.is_expired():
@@ -153,3 +184,63 @@ class RetainStore:
         for t in expired:
             self.remove_local(t)
         return len(expired)
+
+    # ---- TPU mirror -------------------------------------------------------
+    def _ensure_tpu(self):
+        if self._scanner is None:
+            from rmqtt_tpu_torch.ops.retained_part import (
+                PartitionedRetainedScanner,
+                RetainedTable,
+            )
+
+            t0 = time.perf_counter()
+            self._table = RetainedTable()
+            self._scanner = PartitionedRetainedScanner(self._table, self._device)
+            # backfill current tree contents (incl. $-topics)
+            for levels, msg in self._tree.items():
+                self._set_row("/".join(levels), msg)
+            self.mirror_build_ms = (time.perf_counter() - t0) * 1e3
+
+    def _set_row(self, topic: str, msg: Message) -> None:
+        if self._scanner is None:
+            return  # rows are built lazily on first TPU lookup
+        rid = self._rowid_by_topic.get(topic)
+        if rid is None:
+            try:
+                rid = self._table.add(topic)
+            except ValueError:
+                # pre-existing invalid tree entry (e.g. loaded from an old
+                # persisted store): leave it to the tree path rather than
+                # poisoning every future scan
+                return
+            self._rowid_by_topic[topic] = rid
+        self._msg_by_rowid[rid] = (topic, msg)
+
+    def _drop_row(self, topic: str) -> None:
+        rid = self._rowid_by_topic.pop(topic, None)
+        if rid is not None:
+            self._msg_by_rowid.pop(rid, None)
+            if self._table is not None:
+                self._table.remove(rid)
+
+    def _matches_tpu(self, topic_filter: str) -> List[Tuple[str, Message]]:
+        self._ensure_tpu()
+        (row,) = self._scanner.scan([topic_filter])
+        self.scans += 1
+        return [self._msg_by_rowid[rid] for rid in row.tolist() if rid in self._msg_by_rowid]
+
+    def device_stats(self) -> Dict[str, float]:
+        """Retained-scan gauges for ``/api/v1/stats``: device lookups, the
+        hand kernels' launches in this process and the mirror's build
+        time."""
+        from rmqtt_tpu_torch.ops.retained_part import (
+            retained_scan_full,
+            retained_scan_gather,
+        )
+
+        return {
+            "retained_scans": self.scans,
+            "retained_scan_launches_gather": retained_scan_gather.launches,
+            "retained_scan_launches_full": retained_scan_full.launches,
+            "retained_mirror_build_ms": self.mirror_build_ms,
+        }

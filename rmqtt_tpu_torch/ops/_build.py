@@ -1,11 +1,11 @@
 """Build and load the hand-written CUDA kernels.
 
-``nvcc`` compiles ``rmqtt_tpu_torch/csrc/match_words.cu`` into a shared
-library with a plain C interface, loaded with ``ctypes`` (no PyTorch
-headers, so a build takes seconds). The library lands in
-``rmqtt_tpu_torch/_build/`` under a name keyed on a hash of the source and
-the flags, so an edited source rebuilds and an unchanged one loads the
-library already built. Nothing here runs at import time: the first kernel
+One ``nvcc`` call compiles every source of ``rmqtt_tpu_torch/csrc/``
+(``match_words.cu``, ``retained_scan.cu``) into one shared library with a
+plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a build
+takes seconds). The library lands in ``rmqtt_tpu_torch/_build/`` under a
+name keyed on a hash of the sources and the flags, so an edited source
+rebuilds and an unchanged one loads the library already built. Nothing here runs at import time: the first kernel
 launch calls :func:`kernel_library`.
 """
 
@@ -23,7 +23,7 @@ from pathlib import Path
 from typing import Optional
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "match_words.cu"
+SOURCES = (_PKG / "csrc" / "match_words.cu", _PKG / "csrc" / "retained_scan.cu")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -41,6 +41,14 @@ _SIGNATURES = {
     # nc, out, stream
     "launch_match_words_legacy": (_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P,
                                   _P),
+    # tiles, tile_bytes, nchunks, lvl, ftok, flen, fprefix, fhash, fwild,
+    # chunk_ids, b, nc, out, stream
+    "launch_retained_scan_gather": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                                    _I, _I, _P, _P),
+    # tiles, tile_bytes, nchunks, lvl, ftok, flen, fprefix, fhash, fwild, b,
+    # out, stream
+    "launch_retained_scan_full": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P,
+                                  _P),
 }
 
 
@@ -55,14 +63,14 @@ class KernelLibrary:
 
 
 class KernelError(RuntimeError):
-    """A words kernel failed to build, load or launch on the card. The
-    broker rejects the batch it was routing rather than serving it off the
-    card (``kernel_fault``)."""
+    """A kernel failed to build, load or launch on the card. The broker
+    rejects the batch it was routing rather than serving it off the card
+    (``kernel_fault``); a retained scan raises it to its caller."""
 
 
 def kernel_fault(exc: BaseException) -> bool:
     """Is ``exc`` a fault of the card's kernels: a build, load or launch
-    error of the words kernels, or a CUDA error that torch raised (an
+    error of the kernels, or a CUDA error that torch raised (an
     asynchronous kernel fault surfaces at the next synchronisation)?"""
     return isinstance(exc, KernelError) or "CUDA error" in str(exc)
 
@@ -89,7 +97,7 @@ def _nvcc() -> str:
 def _build(so: Path, log_path: Path) -> tuple:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(s) for s in SOURCES)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     secs = time.perf_counter() - t0
@@ -104,15 +112,15 @@ def _build(so: Path, log_path: Path) -> tuple:
 
 
 def kernel_library() -> KernelLibrary:
-    """Build (once per source hash) and load the kernel library."""
+    """Build (once per hash of the sources) and load the kernel library."""
     global _LOADED
     with _LOCK:
         if _LOADED is not None:
             return _LOADED
-        digest = hashlib.sha256(
-            SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
-        so = BUILD_DIR / f"match_words_{digest}.so"
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for src in SOURCES:
+            h.update(src.name.encode() + b"\0" + src.read_bytes())
+        so = BUILD_DIR / f"kernels_{h.hexdigest()[:16]}.so"
         log_path = so.with_suffix(".log")
         if so.exists():
             log = log_path.read_text() if log_path.exists() else ""

@@ -2,9 +2,10 @@
 package's with imports rewritten (one case per file, the deliberate
 changes listed with their reasons); it serves MQTT over TCP with every
 routed batch on ``TorchRouter(device="cpu")`` and delivers exactly what the
-JAX package's broker on its trie router delivers; a configuration that
-needs a part not yet ported refuses the start; ``--router xla`` needs a
-CUDA device."""
+JAX package's broker on its trie router delivers; with ``[retain] tpu``
+its retained replay runs on the scanner and equals the JAX broker's; a
+configuration that needs a part not yet ported refuses the start;
+``--router xla`` and ``[retain] tpu`` need a CUDA device."""
 
 import asyncio
 import collections
@@ -62,13 +63,18 @@ DELIBERATE = {
                           "the module (the boundary test does) starts nothing",
     "broker/context.py": "router 'xla' builds TorchRouter (no tpuprobe); "
                          "[cluster] and [durability] raise NotImplementedError "
-                         "at construction (refuse_unported)",
+                         "at construction (refuse_unported); retain_device= "
+                         "goes to RetainStore; stats() adds the retained-scan "
+                         "gauges",
     "broker/hostprof.py": "its lock is reentrant: the gc callback runs on "
                           "whichever thread collects, also one that holds "
                           "the lock (a plain Lock deadlocks the broker)",
-    "broker/retain.py": "retain_tpu raises NotImplementedError (the device "
-                        "retained scan is ROADMAP Queue A item 10); the "
-                        "device mirror code is gone",
+    "broker/retain.py": "the device mirror runs on the port's scanner on an "
+                        "explicit device: tpu=True resolves it at construction "
+                        "(no CUDA device and none given raises) and builds "
+                        "the kernels there, instead of tpuprobe's "
+                        "ensure_safe_platform at the first scan; device_stats() "
+                        "counts scans and kernel launches",
     "broker/devprof.py": "the HBM census reads the CUDA allocator instead of "
                          "jax.live_arrays(); the matcher seams are not wired",
     "broker/routing.py": "stats() also reports the words kernels' launch "
@@ -275,7 +281,6 @@ def test_gc_inside_the_host_profiler_lock():
 
 # --------------------------------------------------------- refused starts
 _UNPORTED = {
-    "retain_tpu": ("[retain]\ntpu = true\n", "retain_tpu"),
     "plugin": ('[plugins]\ndefault_startups = ["rmqtt-counter"]\n', "rmqtt-counter"),
     "bridge": ('[plugins]\ndefault_startups = ["rmqtt-bridge-egress-kafka"]\n',
                "bridge_kafka"),
@@ -312,6 +317,91 @@ def test_router_xla_needs_cuda(monkeypatch):
     args = tserver.parse_args(["--router", "xla", "--port", "0", "--no-http-api"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         asyncio.run(asyncio.wait_for(tserver._amain(args), timeout=20.0))
+
+
+def test_retain_tpu_needs_cuda(monkeypatch, tmp_path):
+    """``[retain] tpu = true`` puts the retained scan on the current CUDA
+    device: without one the start raises, and no scan runs on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServerContext(BrokerConfig(port=0, retain_tpu=True))
+    cfg = tmp_path / "rmqtt.toml"
+    cfg.write_text("[listener]\nport = 0\n[retain]\ntpu = true\n")
+    args = tserver.parse_args(["--config", str(cfg), "--no-http-api"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        asyncio.run(asyncio.wait_for(tserver._amain(args), timeout=20.0))
+    assert ServerContext(BrokerConfig(port=0, retain_tpu=True),
+                         retain_device="cpu").retain._device.type == "cpu"
+
+
+async def _replay(port: int, topics, filters, want_n):
+    """Publish ``topics`` retained (payload = index) from 4 clients, then
+    subscribe each filter from a client of its own and read its ``want_n``
+    replayed messages and a short quiet window → received multiset of
+    (client, topic, payload, retain flag)."""
+    pubs = [await TestClient.connect(port, f"rp{k}") for k in range(4)]
+    for i, t in enumerate(topics):
+        await pubs[i % 4].publish(t, f"r{i}".encode(), qos=1, retain=True)
+    subs = []
+    for j, f in enumerate(filters):
+        c = await TestClient.connect(port, f"rs{j}")
+        await c.subscribe(f, qos=0)
+        subs.append(c)
+
+    async def collect(j, c):
+        rows = [await c.recv(timeout=5.0) for _ in range(want_n[j])]
+        try:
+            while True:
+                rows.append(await c.recv(timeout=0.2))
+        except asyncio.TimeoutError:
+            pass
+        return [(f"rs{j}", p.topic, bytes(p.payload), p.retain) for p in rows]
+
+    got = collections.Counter()
+    for rows in await asyncio.gather(*(collect(j, c) for j, c in enumerate(subs))):
+        got.update(rows)
+    for c in [*pubs, *subs]:
+        await c.disconnect_clean()
+    return got
+
+
+def test_retained_replay_matches_the_jax_broker():
+    """The port's broker with ``retain_tpu`` on the scanner (``device="cpu"``,
+    a threshold the store passes) replays exactly what the JAX broker
+    replays from its trie: $SYS rows, a bare '#', '+/#', deep filters."""
+    from rmqtt_tpu_torch.bench.retained_cases import TABLE_FILTERS, TABLE_TOPICS
+    from rmqtt_tpu_torch.core.trie import RetainTree
+
+    rng = random.Random(8)
+    topics = list(dict.fromkeys([t for t in TABLE_TOPICS if t] + [
+        "/".join(rng.choice("abcd") for _ in range(rng.randint(1, 5)))
+        for _ in range(300)]))
+    filters = list(TABLE_FILTERS) + ["a/+", "+/b/+", "c/#"]
+    oracle = RetainTree()
+    for i, t in enumerate(topics):
+        oracle.insert(t, i)
+    want_n = [len(oracle.matches(f)) for f in filters]
+
+    async def run():
+        jb = JMqttBroker(JServerContext(JBrokerConfig(port=0)))
+        tb = tserver.MqttBroker(ServerContext(
+            BrokerConfig(port=0, retain_tpu=True, retain_tpu_threshold=50),
+            retain_device="cpu"))
+        await jb.start()
+        await tb.start()
+        try:
+            got_j = await _replay(jb.port, topics, filters, want_n)
+            got_t = await _replay(tb.port, topics, filters, want_n)
+            return got_j, got_t, tb.ctx.stats().to_json()
+        finally:
+            await tb.stop()
+            await jb.stop()
+
+    got_j, got_t, st = asyncio.run(asyncio.wait_for(run(), timeout=60.0))
+    assert got_t == got_j and sum(got_j.values()) == sum(want_n) > 500
+    assert all(retain for (*_k, retain) in got_t)
+    assert st["retained_scans"] == len(filters) and st["retained_mirror_build_ms"] > 0
+    assert st["retaineds"] == len(topics)
 
 
 def test_trie_and_native_routers_need_no_device():

@@ -1,6 +1,7 @@
 """The CUDA kernels on a card: each against its plain twin, the router on
-the card against the same router on the CPU, and the port's broker with
-every batch on the card against the ``DefaultRouter`` oracle.
+the card against the same router on the CPU, the port's broker with
+every batch on the card against the ``DefaultRouter`` oracle, and its
+retained replay through the retained-scan kernels against ``RetainTree``.
 
 This file imports nothing of JAX, so it also runs where JAX is not
 installed: ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
@@ -8,6 +9,7 @@ on a machine with an NVIDIA GPU (``tests/conftest.py`` imports JAX).
 Every test here skips where torch sees no CUDA device."""
 
 import asyncio
+import collections
 import random
 
 import numpy as np
@@ -16,13 +18,18 @@ import torch
 
 import rmqtt_tpu_torch.ops.match_words as MW
 import rmqtt_tpu_torch.ops.partitioned as TP
+import rmqtt_tpu_torch.ops.retained_part as RP
 from rmqtt_tpu_torch.bench.mqtt_load import (LoadClient, connect_and_subscribe,
                                              expected_deliveries, oracle_router,
                                              publish_wave)
+from rmqtt_tpu_torch.bench.retained_cases import (RETAINED_CASES, TABLE_FILTERS,
+                                                  make_retained_case, table_inputs,
+                                                  table_topics)
 from rmqtt_tpu_torch.bench.words_cases import EDGE_CASES, make_case
 from rmqtt_tpu_torch.broker.context import BrokerConfig, ServerContext
 from rmqtt_tpu_torch.broker.server import MqttBroker
-from rmqtt_tpu_torch.bench.workloads import gen_mixed, gen_topics_uniform
+from rmqtt_tpu_torch.bench.workloads import (gen_mixed, gen_retained_topics,
+                                             gen_topics_uniform, retained_sub_filters)
 from rmqtt_tpu_torch.router import Id, SubscriptionOptions, TorchRouter
 
 FORMATS = ["packed", "legacy_int16", "legacy_int32"]
@@ -193,10 +200,146 @@ def test_kernel_build_failure_refuses_the_start(cuda, tmp_path, monkeypatch):
 
     bad = tmp_path / "match_words.cu"
     bad.write_text("this is not CUDA\n")
-    monkeypatch.setattr(B, "SOURCE", bad)
+    monkeypatch.setattr(B, "SOURCES", (bad,))
     monkeypatch.setattr(B, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(B, "_LOADED", None)
     with pytest.raises(B.KernelError, match="nvcc failed"):
         TorchRouter(device=cuda)
     with pytest.raises(B.KernelError, match="nvcc failed"):
         ServerContext(BrokerConfig(router="xla"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", RETAINED_CASES, ids=[c.name for c in RETAINED_CASES])
+def test_retained_kernels_equal_plain_on_cuda(cuda, case):
+    """Random tiles: NC of 1 and 33, B of 1 and 3, chunk 0 as padding and
+    repeated, int32 tiles, every level range. Out-of-range ids give zero
+    words."""
+    tiles, fields, ids, bad, plain_ids = make_retained_case(case)
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
+    args = [put(a) for a in (tiles, *fields)]
+    counter = RP.retained_scan_gather if case.tier == "gather" else RP.retained_scan_full
+    n0 = counter.launches
+    if case.tier == "gather":
+        got = RP.retained_scan_gather(*args, put(ids))
+        want = RP.retained_scan_words_plain(*args, put(plain_ids))
+    else:
+        got = RP.retained_scan_full(*args)
+        want = RP.retained_scan_full_plain(*args)
+    if bad is not None:
+        badw = put(np.repeat(bad, RP.WORDS_PER_CHUNK, axis=1))
+        assert not bool(got[badw].any())
+        want = torch.where(badw, torch.zeros_like(want), want)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and bool((want != 0).any())
+    assert counter.launches == n0 + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dollar", "wide"])
+def test_retained_kernels_on_real_topics_on_cuda(cuda, kind):
+    """Tables of real topics: $SYS rows against wildcard-first filters, a
+    bare '#', '+/#', filters deeper than max_levels; int32 tiles past a
+    0x7FFF vocabulary. Both tiers, NC of the longest list, 33 and 1."""
+    table = RP.RetainedTable()
+    for t in table_topics(kind, np.random.default_rng(4)):
+        table.add(t)
+    cpu = RP.PartitionedRetainedScanner(table, device="cpu")
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
+    for nc in (None, 33, 1):
+        tiles, gather, full = table_inputs(cpu, TABLE_FILTERS, nc)
+        assert tiles.dtype == (np.int32 if kind == "wide" else np.int16)
+        args = [put(a) for a in (tiles, *gather)]
+        assert torch.equal(RP.retained_scan_gather(*args),
+                           RP.retained_scan_words_plain(*args))
+        args = [put(a) for a in (tiles, *full)]
+        assert torch.equal(RP.retained_scan_full(*args), RP.retained_scan_full_plain(*args))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_retained_scanner_on_cuda_equals_cpu(cuda):
+    """cfg5's draw (20K) and the subscriber mix through the scanner on the
+    card and on the CPU: identical fid arrays, both tiers launched."""
+    topics = gen_retained_topics(random.Random(7), 20_000)
+    filters = retained_sub_filters(random.Random(5), 256)
+    res = []
+    for dev in (cuda, "cpu"):
+        table = RP.RetainedTable()
+        for t in topics:
+            table.add(t)
+        scanner = RP.PartitionedRetainedScanner(table, device=dev)
+        res.append([r for lo in range(0, 256, 64) for r in scanner.scan(filters[lo:lo + 64])])
+    n = RP.retained_scan_gather.launches, RP.retained_scan_full.launches
+    assert all(np.array_equal(a, b) for a, b in zip(*res))
+    assert sum(len(r) for r in res[1]) > 10_000 and min(n) > 0
+
+
+@pytest.mark.cuda
+def test_retained_kernel_build_failure_refuses_the_scanner(cuda, tmp_path, monkeypatch):
+    """A retained-scan source that does not build refuses the scanner and a
+    broker with ``[retain] tpu = true`` at construction."""
+    import rmqtt_tpu_torch.ops._build as B
+
+    bad = tmp_path / "retained_scan.cu"
+    bad.write_text("this is not CUDA\n")
+    monkeypatch.setattr(B, "SOURCES", (B.SOURCES[0], bad))
+    monkeypatch.setattr(B, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(B, "_LOADED", None)
+    with pytest.raises(B.KernelError, match="nvcc failed"):
+        RP.PartitionedRetainedScanner(RP.RetainedTable(), device=cuda)
+    with pytest.raises(B.KernelError, match="nvcc failed"):
+        ServerContext(BrokerConfig(retain_tpu=True))
+
+
+@pytest.mark.cuda
+def test_broker_retained_replay_on_cuda(cuda):
+    """An in-process broker with ``retain_tpu`` on the card (threshold 100):
+    600 retained messages, 16 subscribers of the mix, the replay equal to
+    the RetainTree oracle and served by the retained kernels."""
+    from rmqtt_tpu_torch.core.trie import RetainTree
+
+    topics = gen_retained_topics(random.Random(9), 600)
+    filters = retained_sub_filters(random.Random(5), 16) + ["+/#", "#"]
+    payloads = [b"r%d" % i for i in range(len(topics))]
+    oracle = RetainTree()
+    for i, t in enumerate(topics):
+        oracle.insert(t, i)
+    want = collections.Counter()
+    for j, f in enumerate(filters):
+        for _lv, i in oracle.matches(f):
+            want[(f"s{j}", topics[i], payloads[i])] += 1
+
+    async def run():
+        broker = MqttBroker(ServerContext(BrokerConfig(
+            port=0, retain_tpu=True, retain_tpu_threshold=100)))
+        await broker.start()
+        try:
+            pub = await LoadClient.connect(broker.port, "pub")
+            for t, p in zip(topics, payloads):
+                pub.publish(t, p, retain=True)
+            await pub.ping()
+            while broker.ctx.retain.count() < len(topics):
+                await asyncio.sleep(0.05)
+            n0 = RP.retained_scan_gather.launches + RP.retained_scan_full.launches
+            subs = [await LoadClient.connect(broker.port, f"s{j}")
+                    for j in range(len(filters))]
+            for c, f in zip(subs, filters):
+                await c.subscribe([f])
+            per = collections.Counter()
+            for (cid, _t, _p), k in want.items():
+                per[cid] += k
+            await asyncio.gather(*(c.wait_count(per[c.client_id], 60.0) for c in subs))
+            await asyncio.sleep(0.3)
+            got = collections.Counter((c.client_id, t, p) for c in subs
+                                      for t, p, _ts in c.received)
+            launched = RP.retained_scan_gather.launches + RP.retained_scan_full.launches - n0
+            for c in [pub, *subs]:
+                await c.close()
+            return got, launched, broker.ctx.retain.scans
+        finally:
+            await broker.stop()
+
+    got, launched, scans = asyncio.run(asyncio.wait_for(run(), timeout=120.0))
+    assert got == want and sum(want.values()) > 1000
+    assert launched >= len(filters) and scans == len(filters)
