@@ -24,12 +24,18 @@ Phases, each of which fails the run (nonzero exit, no result line):
 3r. retained kernels — the gather and the full-stream retained-scan kernels
    against their twins (``torch.equal``) at the scanner's real shapes on
    the 1M-topic retained table (a 64-filter batch of ``run_retained``'s
-   mix), on ``bench/retained_cases.py``'s ``RETAINED_CASES`` (random tiles;
-   NC=1 and 33, B=1 and 3, chunk 0 as padding and repeated, out-of-range
-   ids, int32 tiles, every level range) and on tables of real topics
-   ($SYS rows against wildcard-first filters, a bare ``#``, ``+/#``,
-   filters deeper than ``max_levels``, a vocabulary past 0x7FFF); timed
-   with CUDA events beside their bounds;
+   mix) and at the broker's one-filter scans on the same table (the narrow
+   filter with the longest candidate list; a broad filter with a literal
+   first level), on ``bench/retained_cases.py``'s ``RETAINED_CASES``
+   (random tiles; NC=1, 33 and hundreds, B=1 and 3, chunk 0 as padding and
+   repeated, lists of padding only, out-of-range ids, int32 tiles, every
+   level range, odd tile counts, literal levels past level 1, filter values
+   past int16, more filters than one shared-memory group) and on tables of
+   real topics ($SYS rows against wildcard-first filters, a bare ``#``,
+   ``+/#``, filters deeper than ``max_levels``, a vocabulary past 0x7FFF);
+   timed at each real shape by CUDA-graph replay (the kernel's time on the
+   card) and per call through the wrapper by CUDA events, beside their
+   bounds;
 4. cfg3 end to end through ``TorchRouter`` on packed tiles: 1M ``gen_mixed``
    filters (seed 0), 32,768 ``gen_topics_uniform`` topics in batches of
    16,384, pipelined (depth 2) and serial; a 2,048-topic sample checked
@@ -105,6 +111,10 @@ from rmqtt_tpu_torch.bench.words_cases import (EDGE_CASES, make_case,
 from rmqtt_tpu_torch.bench.retained_cases import (RETAINED_CASES, TABLE_FILTERS,
                                                   make_retained_case, table_inputs,
                                                   table_topics)
+from rmqtt_tpu_torch.bench.retained_kernels import (RETAINED_BATCH, card_line, real_shapes,
+                                                    retained_bound_ms)
+from rmqtt_tpu_torch.bench.timing import (HBM_BYTES_PER_S, INT_OPS_PER_S, SCALAR_OPS_PER_S,
+                                          time_cuda, time_graph)
 from rmqtt_tpu_torch.bench.workloads import (gen_mixed, gen_retained_topics,
                                              gen_topics_uniform, retained_sub_filters)
 from rmqtt_tpu_torch.core.trie import RetainTree, TopicTree
@@ -115,9 +125,6 @@ from rmqtt_tpu_torch.ops.encode import PackedLayout
 from rmqtt_tpu_torch.ops.partitioned import split_buckets
 from rmqtt_tpu_torch.router import Id, SubscriptionOptions, TorchRouter
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
-SCALAR_OPS_PER_S = 67e12  # H100 SXM non-tensor FP32 rate (an FMA counts as two)
-INT_OPS_PER_S = 64 * 132 * 1.98e9  # integer pipe: 64 ops/clk/SM, 132 SMs, 1.98 GHz
 SMALL_SET = 64  # tiles: 64 KB packed, 176 KB legacy int16 (an SM's L1 is 256 KB)
 KERNEL_SOURCE = {
     "match_words_packed": "rmqtt_tpu_torch/csrc/match_words.cu",
@@ -174,35 +181,6 @@ def timed(name: str, fn, *args):
         PHASE_S[name] = time.perf_counter() - t0
 
 
-def time_cuda(fn, reps: int, warmup: int = 2) -> float:
-    """Mean ms per call over ``reps`` calls, by CUDA events after warm-up."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def time_graph(fn, reps: int, per_graph: int = 20) -> float:
-    """Device ms per call: ``per_graph`` calls captured in one CUDA graph,
-    replayed ``reps`` times between CUDA events. Unlike :func:`time_cuda`
-    this leaves out the host's launch path, which is longer than a small
-    kernel."""
-    fn()
-    torch.cuda.synchronize()
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for _ in range(per_graph):
-            fn()
-    return time_cuda(g.replay, reps) / per_graph
-
-
 def words_bound_ms(tiles, ttok, chunk_ids, nlvl: int):
     """Least time for one words call on these inputs: the larger of the
     bytes it must move (each referenced tile, each input read once, the
@@ -226,14 +204,6 @@ def words_bound_ms(tiles, ttok, chunk_ids, nlvl: int):
 
 
 # ------------------------------------------------------------ phase 1, 2
-def card_line() -> str:
-    """The card's name and power limit, as nvidia-smi gives them."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
-
-
 def phase_device() -> dict:
     name = torch.cuda.get_device_name(0)
     log(f"[1] device: {name}, {torch.cuda.device_count()} visible; torch "
@@ -403,59 +373,12 @@ def phase_kernels(packed_router: TorchRouter, legacy_router: TorchRouter,
 
 
 # ---------------------------------------------------------- phase 3r, 4r
-RETAINED_BATCH = 64  # run_retained's scan batch
 RETAINED_ROUNDS = 8  # run_retained's rounds
 PUBLISH_BATCH = 1024  # run_retained's publish batch
 RETAINED_PAIRS = {
     "gather": (RP.retained_scan_gather, RP.retained_scan_words_plain),
     "full": (RP.retained_scan_full, RP.retained_scan_full_plain),
 }
-
-
-def retained_bound_ms(tiles, fields, chunk_ids=None):
-    """Least time for one retained-scan call on these inputs, reckoned as
-    :func:`words_bound_ms` does, counting only what a row test needs. Bytes:
-    of each tile it must test (gather: the distinct nonzero ids, chunk 0
-    being the empty chunk that pads every list; full: the tiles that hold a
-    live row) the rows its filters read — rlen; flags if one of them starts
-    with a wildcard (the ``$`` check); the token rows of their literal
-    (non-``+``) levels within their prefix — then the filter fields and ids
-    read once and the words written once, over the memory rate.
-    Operations: each test of a real filter (``flen != -2``) against a live
-    row (``rlen >= 1``) costs ~6 plus 2 per literal level of the filter,
-    over the FP32 and the integer rates. → (bound ms, "bytes" or
-    "operations", the bound with the operations at the integer rate)."""
-    lvl = tiles.shape[1] - 3
-    row_bytes = tiles.shape[2] * tiles.element_size()
-    ftok, flen, fprefix, _fhash, fwild = fields
-    real_f = flen != -2
-    lit = ((torch.arange(lvl, device=ftok.device)[None, :] < fprefix[:, None])
-           & (ftok != RP.PLUS_TOK) & real_f[:, None])  # [B, L]
-    # per filter, the rows a test of it reads: its literal token rows,
-    # rlen, flags
-    need = torch.cat([lit, real_f[:, None], ((fwild != 0) & real_f)[:, None]], dim=1)
-    op_f = (6 + 2 * lit.sum(dim=1)) * real_f  # operations per row test
-    live_n = (tiles[:, lvl, :] >= 1).sum(dim=1)  # live rows per tile
-    in_bytes = sum(f.numel() * 4 for f in fields)
-    if chunk_ids is None:
-        rows_read = int(need.any(dim=0).sum()) * int((live_n > 0).sum())
-        ops = int(live_n.sum()) * int(op_f.sum())
-        out_words = ftok.shape[0] * tiles.shape[0] * RP.WORDS_PER_CHUNK
-    else:
-        ids = chunk_ids.long()
-        real = (ids != 0) & real_f[:, None]
-        # a tile is read once per row whichever of its slots need the row
-        rows_read = sum(torch.unique(ids[real & need[:, r:r + 1]]).numel()
-                        for r in range(need.shape[1]))
-        ops = int((live_n[ids] * op_f[:, None])[real].sum())
-        in_bytes += chunk_ids.numel() * 4
-        out_words = chunk_ids.numel() * RP.WORDS_PER_CHUNK
-    nbytes = rows_read * row_bytes + in_bytes + out_words * 4
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / SCALAR_OPS_PER_S * 1e3
-    t_int = ops / INT_OPS_PER_S * 1e3
-    return (max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"),
-            max(t_bytes, t_int))
 
 
 def _retained_args(tiles, arrs, dev):
@@ -465,39 +388,34 @@ def _retained_args(tiles, arrs, dev):
     return (t, *(_put(a, dev) for a in arrs))
 
 
-def _both_tier_batch(scanner, filters):
-    """The first 64-filter slice of the mix whose plan has both tiers."""
-    for lo in range(0, len(filters) - RETAINED_BATCH + 1, RETAINED_BATCH):
-        st, tiers, _ = scanner.plan(filters[lo:lo + RETAINED_BATCH])
-        if len(tiers) == 2:
-            return lo, st, tiers
-    raise AssertionError("no 64-filter slice of the mix has both tiers")
-
-
 def phase_retained_kernels(scanner, filters, dev) -> dict:
     """Both retained kernels against their plain twins; timings at the
-    scanner's real shapes on the 1M-topic table."""
+    scanner's real shapes on the 1M-topic table (its 64-filter batch in
+    each kernel's stats, the broker's one-filter scans under
+    ``"one_filter"``): ``graph_ms`` by CUDA-graph replay, the kernel's time
+    on the card; ``ms`` per call through the wrapper by CUDA events. A
+    kernel's ``cases`` and ``max_abs_err`` count every check of it: both
+    shapes, the cases and the tables."""
     log("[3r] retained kernels against their plain twins")
     stats = {"retained_scan_gather": {}, "retained_scan_full": {}}
-    lo, st, tiers = _both_tier_batch(scanner, filters)
-    for mode, arrs, nc in tiers:
+    st, shapes = real_shapes(scanner, filters)
+    for label, mode, arrs, shape in shapes:
         name = f"retained_scan_{mode}"
-        s = stats[name]
+        s = stats[name] if label == "batch" else stats[name].setdefault(label, {})
         kern, plain = RETAINED_PAIRS[mode]
         args = _retained_args(st.rows, arrs, dev)
-        b = arrs[0].shape[0]
-        shape = f"B={b} NC={nc}" if mode == "gather" else f"B={b} over {nc} tiles"
-        _compare(f"{name} real 1M table, filters {lo}..{lo + RETAINED_BATCH - 1} "
-                 f"of the mix, {shape}", kern, plain, args, s)
+        _compare(f"{name} real 1M table, {label}: {shape}", kern, plain, args,
+                 stats[name])
         s["ms"] = time_cuda(lambda: kern(*args), reps=50)
-        s["graph_ms"] = time_graph(lambda: kern(*args), reps=10)
+        s["graph_ms"] = time_graph(lambda: kern(*args), reps=20)
         s["plain_ms"] = time_cuda(lambda: plain(*args), reps=3, warmup=1)
         s["bound_ms"], s["bound_by"], s["bound_int_ms"] = retained_bound_ms(
             st.rows, args[1:6], args[6] if mode == "gather" else None)
         s["shape"] = shape
-        log(f"    {name}: {s['ms']:.4f} ms at {shape} ({s['graph_ms']:.4f} ms by "
-            f"graph replay), plain {s['plain_ms']:.3f} ms, bound {s['bound_ms']:.4f} ms "
-            f"by {s['bound_by']} ({s['bound_int_ms']:.4f} ms at the integer rate)")
+        log(f"    {name} {label}: {s['graph_ms']:.5f} ms by graph replay at {shape}, "
+            f"{s['ms']:.4f} ms per call through the wrapper, plain {s['plain_ms']:.3f} ms, "
+            f"bound {s['bound_ms']:.5f} ms by {s['bound_by']} ({s['bound_int_ms']:.5f} ms "
+            f"at the integer rate)")
     for case in RETAINED_CASES:
         tiles, fields, ids, bad, pids = make_retained_case(case)
         kern, plain = RETAINED_PAIRS[case.tier]
@@ -1460,7 +1378,7 @@ def main(argv=None) -> int:
             row.update(small_set_ms=s["small_set_ms"],
                        bucket_ms_per_batch=sum(ms for *_, ms in s["bucket_ms"]))
         else:
-            row["shape"] = s["shape"]
+            row.update(shape=s["shape"], one_filter=s["one_filter"])
         kernels.append(row)
     log(f"[8] kernels (total run {time.perf_counter() - t_start:.1f}s; seconds by "
         f"phase {({k: round(v, 1) for k, v in PHASE_S.items()})}); retained "

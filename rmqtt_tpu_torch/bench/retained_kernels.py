@@ -1,0 +1,248 @@
+"""The retained-scan kernels at the shapes of cfg5's retained side, and
+against another version of their source, in turns on one card.
+
+The shapes (:func:`real_shapes`), on the 1M-draw table: the scanner's
+64-filter batch (the first slice of ``run_retained``'s mix whose plan has
+both tiers), and the broker's one-filter scans (``broker/retain.py`` scans
+each SUBSCRIBE's filter alone): the narrow filter of the mix with the
+longest candidate list (gather, B = 1) and the first broad filter that
+compares a literal level (full, B = 1). :func:`retained_bound_ms` is the
+least time the card could take for a call.
+
+    python -m rmqtt_tpu_torch.bench.retained_kernels --other OLD.cu [--other ...]
+
+builds each ``OLD.cu`` (another ``retained_scan.cu``, for example an
+earlier commit's: ``git show <commit>:rmqtt_tpu_torch/csrc/retained_scan.cu``)
+beside the current ``match_words.cu`` into a library of its own, checks
+every library's words equal to the plain twins at every shape, and times
+them in turns (the others, this, this, the others in reverse) by CUDA-graph
+replay and per call (a direct launch through ctypes, the same Python for
+all). It prints the card's name and power limit, then one JSON line. It
+needs one GPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import random
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from rmqtt_tpu_torch.bench.timing import (HBM_BYTES_PER_S, INT_OPS_PER_S, SCALAR_OPS_PER_S,
+                                          time_cuda, time_graph)
+from rmqtt_tpu_torch.bench.workloads import gen_retained_topics, retained_sub_filters
+from rmqtt_tpu_torch.core.topic import HASH, PLUS, split_levels
+from rmqtt_tpu_torch.ops import retained_part as RP
+from rmqtt_tpu_torch.ops._build import SOURCES, kernel_library, load_library
+
+RETAINED_BATCH = 64  # run_retained's scan batch
+
+
+def retained_work(tiles, fields, chunk_ids=None):
+    """What one retained-scan call on these inputs must do, counting only
+    what a row test needs. Bytes: of each tile it must test (gather: the
+    distinct nonzero ids, chunk 0 being the empty chunk that pads every
+    list; full: the tiles that hold a live row) the rows its filters read —
+    rlen; flags if one of them starts with a wildcard (the ``$`` check);
+    the token rows of their literal (non-``+``) levels within their prefix
+    — then the filter fields and ids read once and the words written once.
+    Operations: each test of a real filter (``flen != -2``) against a live
+    32-bit word of rows costs ~6 plus 2 per literal level of the filter; a
+    word holds one int32 row or two int16 rows (one operation tests both
+    halves), and is live when one of its rows is (``rlen >= 1``). → (bytes,
+    operations)."""
+    lvl = tiles.shape[1] - 3
+    row_bytes = tiles.shape[2] * tiles.element_size()
+    ftok, flen, fprefix, _fhash, fwild = fields
+    real_f = flen != -2
+    lit = ((torch.arange(lvl, device=ftok.device)[None, :] < fprefix[:, None])
+           & (ftok != RP.PLUS_TOK) & real_f[:, None])  # [B, L]
+    # per filter, the rows a test of it reads: its literal token rows,
+    # rlen, flags
+    need = torch.cat([lit, real_f[:, None], ((fwild != 0) & real_f)[:, None]], dim=1)
+    op_f = (6 + 2 * lit.sum(dim=1)) * real_f  # operations per word test
+    live = tiles[:, lvl, :] >= 1
+    if tiles.element_size() == 2:
+        live = live[:, 0::2] | live[:, 1::2]  # rows 2m, 2m+1 share a word
+    live_n = live.sum(dim=1)  # live words per tile
+    in_bytes = sum(f.numel() * 4 for f in fields)
+    if chunk_ids is None:
+        rows_read = int(need.any(dim=0).sum()) * int((live_n > 0).sum())
+        ops = int(live_n.sum()) * int(op_f.sum())
+        out_words = ftok.shape[0] * tiles.shape[0] * RP.WORDS_PER_CHUNK
+    else:
+        ids = chunk_ids.long()
+        real = (ids != 0) & real_f[:, None]
+        # a tile is read once per row whichever of its slots need the row
+        rows_read = sum(torch.unique(ids[real & need[:, r:r + 1]]).numel()
+                        for r in range(need.shape[1]))
+        ops = int((live_n[ids] * op_f[:, None])[real].sum())
+        in_bytes += chunk_ids.numel() * 4
+        out_words = chunk_ids.numel() * RP.WORDS_PER_CHUNK
+    return rows_read * row_bytes + in_bytes + out_words * 4, ops
+
+
+def retained_bound_ms(tiles, fields, chunk_ids=None):
+    """Least time for one retained-scan call: :func:`retained_work`'s bytes
+    over the memory rate, its operations over the FP32 and the integer
+    rates. → (bound ms, "bytes" or "operations", the bound with the
+    operations at the integer rate)."""
+    nbytes, ops = retained_work(tiles, fields, chunk_ids)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / SCALAR_OPS_PER_S * 1e3
+    t_int = ops / INT_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"),
+            max(t_bytes, t_int))
+
+
+def both_tier_batch(scanner, filters):
+    """The first 64-filter slice of the mix whose plan has both tiers →
+    (its first index, the resident state, the plan's tiers)."""
+    for lo in range(0, len(filters) - RETAINED_BATCH + 1, RETAINED_BATCH):
+        st, tiers, _ = scanner.plan(filters[lo:lo + RETAINED_BATCH])
+        if len(tiers) == 2:
+            return lo, st, tiers
+    raise AssertionError("no 64-filter slice of the mix has both tiers")
+
+
+def one_filter_scans(scanner, filters):
+    """The broker's shapes: ``[(filter, tier)]`` for the narrow filter of
+    ``filters`` with the longest candidate list (a gather tier, B = 1) and
+    the first broad one whose level 0 is a literal (a full tier, B = 1; on
+    a table too small for such a filter to be broad, the first broad one),
+    each tier ``(mode, encoded arrays, nc)`` as ``scanner.plan([filter])``
+    gives it."""
+    longest, broad, literal = None, None, None
+    for f in dict.fromkeys(filters):
+        _st, tiers, _ = scanner.plan([f])
+        mode, _arrs, nc = tiers[0]
+        if mode == "gather" and (longest is None or nc > longest[1][2]):
+            longest = (f, tiers[0])
+        if mode == "full":
+            broad = broad or (f, tiers[0])
+            if literal is None and split_levels(f)[0] not in (PLUS, HASH):
+                literal = (f, tiers[0])
+    if longest is None or broad is None:
+        raise AssertionError("the mix lacks a narrow or a broad filter")
+    return [longest, literal or broad]
+
+
+def real_shapes(scanner, filters):
+    """→ (resident state, ``[(label, mode, encoded arrays, shape text)]``):
+    both tiers of the 64-filter batch (label ``"batch"``), then the two
+    one-filter scans (label ``"one_filter"``)."""
+    lo, st, tiers = both_tier_batch(scanner, filters)
+    out = []
+    for mode, arrs, nc in tiers:
+        b = arrs[0].shape[0]
+        shape = f"B={b} NC={nc}" if mode == "gather" else f"B={b} over {nc} tiles"
+        out.append(("batch", mode, arrs,
+                    f"{shape}, filters {lo}..{lo + RETAINED_BATCH - 1} of the mix"))
+    for f, (mode, arrs, nc) in one_filter_scans(scanner, filters):
+        shape = f"B=1 NC={nc}" if mode == "gather" else f"B=1 over {nc} tiles"
+        out.append(("one_filter", mode, arrs, f"{shape}, '{f}'"))
+    return st, out
+
+
+# ------------------------------------------------------------ comparison
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def direct_call(lib, mode: str, args):
+    """A launch of ``lib``'s kernel for ``mode`` on ``args`` (tiles, the
+    five filter fields, chunk ids for the gather) through ctypes, on the
+    current stream → (call, its output tensor)."""
+    tiles, fields = args[0], args[1:6]
+    ptrs = [f.data_ptr() for f in fields]
+    dims = (tiles.data_ptr(), tiles.element_size(), tiles.shape[0], tiles.shape[1] - 3)
+    b = fields[0].shape[0]
+    if mode == "gather":
+        ids = args[6]
+        nc = ids.shape[1]
+        out = torch.empty((b, nc * RP.WORDS_PER_CHUNK), dtype=torch.int32, device=tiles.device)
+
+        def call():
+            err = lib.launch_retained_scan_gather(*dims, *ptrs, ids.data_ptr(), b, nc,
+                                                  out.data_ptr(),
+                                                  torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"launch_retained_scan_gather: CUDA error {err}")
+    else:
+        out = torch.empty((b, tiles.shape[0] * RP.WORDS_PER_CHUNK), dtype=torch.int32,
+                          device=tiles.device)
+
+        def call():
+            err = lib.launch_retained_scan_full(*dims, *ptrs, b, out.data_ptr(),
+                                                torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"launch_retained_scan_full: CUDA error {err}")
+    return call, out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--other", required=True, type=Path, action="append",
+                    help="another retained_scan.cu to time against the current one")
+    ap.add_argument("--retained", type=int, default=1_000_000, help="cfg5 retained draws")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("retained_kernels: no CUDA device; this run needs one GPU", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    print(card, flush=True)
+    libs = {str(o): load_library((SOURCES[0], o.resolve())).lib for o in args.other}
+    others = list(libs)
+    libs["this"] = kernel_library().lib
+    t0 = time.perf_counter()
+    table = RP.RetainedTable()
+    for t in gen_retained_topics(random.Random(args.seed + 5), args.retained):
+        table.add(t)
+    scanner = RP.PartitionedRetainedScanner(table, device=dev)
+    st, shapes = real_shapes(scanner, retained_sub_filters(random.Random(5)))
+    print(f"table: {table.size} topics, tiles {tuple(st.rows.shape)} {st.rows.dtype}, "
+          f"built in {time.perf_counter() - t0:.1f}s", flush=True)
+    rows = []
+    for label, mode, arrs, shape in shapes:
+        dargs = (st.rows, *(torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
+                            for a in arrs))
+        plain = (RP.retained_scan_words_plain if mode == "gather"
+                 else RP.retained_scan_full_plain)(*dargs)
+        calls = {}
+        for name, lib in libs.items():
+            call, out = direct_call(lib, mode, dargs)
+            call()
+            torch.cuda.synchronize()
+            if not torch.equal(out, plain):
+                raise AssertionError(f"{name} {mode} at {shape}: words differ from the twin")
+            calls[name] = call
+        row = {"label": label, "kernel": f"retained_scan_{mode}", "shape": shape,
+               **{name: {"graph_ms": [], "call_ms": []} for name in libs}}
+        for name in [*others, "this", "this", *others[::-1]]:  # in turns
+            row[name]["graph_ms"].append(time_graph(calls[name], reps=20))
+            row[name]["call_ms"].append(time_cuda(calls[name], reps=50))
+        row["bound_ms"], row["bound_by"], row["bound_int_ms"] = retained_bound_ms(
+            st.rows, dargs[1:6], dargs[6] if mode == "gather" else None)
+        print(f"{label} {mode} {shape}: " + "; ".join(f"{n} {row[n]}" for n in libs)
+              + f"; bound {row['bound_ms']:.5f} ms by {row['bound_by']} "
+              f"({row['bound_int_ms']:.5f} at the integer rate); all equal to the twin",
+              flush=True)
+        rows.append(row)
+    print(json.dumps({"card": card, "others": others, "shapes": rows}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

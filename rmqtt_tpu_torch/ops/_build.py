@@ -94,10 +94,10 @@ def _nvcc() -> str:
         "kernels of rmqtt_tpu_torch are built from source at first use")
 
 
-def _build(so: Path, log_path: Path) -> tuple:
+def _build(sources, so: Path, log_path: Path) -> tuple:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(s) for s in SOURCES)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(s) for s in sources)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     secs = time.perf_counter() - t0
@@ -111,29 +111,37 @@ def _build(so: Path, log_path: Path) -> tuple:
     return log, secs
 
 
+def load_library(sources) -> KernelLibrary:
+    """Build (once per hash of ``sources``) and load a library of the
+    kernels' C interface from ``sources`` (paths; every launcher of
+    ``_SIGNATURES`` among them). :func:`kernel_library` loads
+    :data:`SOURCES`; a benchmark may load another version of a source
+    beside it."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    so = BUILD_DIR / f"kernels_{h.hexdigest()[:16]}.so"
+    log_path = so.with_suffix(".log")
+    if so.exists():
+        log = log_path.read_text() if log_path.exists() else ""
+        secs = 0.0
+    else:
+        log, secs = _build(sources, so, log_path)
+    try:
+        lib = ctypes.CDLL(str(so))
+    except OSError as e:
+        raise KernelError(f"cannot load {so}: {e}") from e
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return KernelLibrary(lib=lib, path=so, log=log, build_s=secs)
+
+
 def kernel_library() -> KernelLibrary:
     """Build (once per hash of the sources) and load the kernel library."""
     global _LOADED
     with _LOCK:
-        if _LOADED is not None:
-            return _LOADED
-        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for src in SOURCES:
-            h.update(src.name.encode() + b"\0" + src.read_bytes())
-        so = BUILD_DIR / f"kernels_{h.hexdigest()[:16]}.so"
-        log_path = so.with_suffix(".log")
-        if so.exists():
-            log = log_path.read_text() if log_path.exists() else ""
-            secs = 0.0
-        else:
-            log, secs = _build(so, log_path)
-        try:
-            lib = ctypes.CDLL(str(so))
-        except OSError as e:
-            raise KernelError(f"cannot load {so}: {e}") from e
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
-        _LOADED = KernelLibrary(lib=lib, path=so, log=log, build_s=secs)
+        if _LOADED is None:
+            _LOADED = load_library(SOURCES)
         return _LOADED

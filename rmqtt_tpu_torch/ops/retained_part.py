@@ -264,6 +264,9 @@ def _check_cuda(name: str, tiles, fields, chunk_ids=None) -> None:
         raise ValueError(f"{name}: tiles {tuple(tiles.shape)} are not [n, L+3, {CHUNK}]")
     if not tiles.is_contiguous():
         raise ValueError(f"{name}: tiles must be contiguous")
+    if tiles.data_ptr() % 16:
+        raise ValueError(f"{name}: tiles at {tiles.data_ptr():#x} are not 16-byte "
+                         f"aligned (the kernels read rows in 16-byte loads)")
     if tiles.shape[0] >= 1 << 31:
         raise ValueError(f"{name}: {tiles.shape[0]} tiles exceed the int32 index")
     for arg, t in named:
@@ -303,8 +306,9 @@ def _cpu_result(words: torch.Tensor, out) -> torch.Tensor:
 def retained_scan_gather(tiles, ftok, flen, fprefix, fhash, fwild, chunk_ids,
                          out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Narrow-tier words ``[B, NC*4]`` int32 (into ``out`` when given). CUDA
-    tensors (int16/int32 tiles, int32 fields, contiguous, one device)
-    launch the kernel; CPU tensors run the plain twin."""
+    tensors (int16/int32 tiles at a 16-byte aligned address, int32 fields,
+    contiguous, one device) launch the kernel; CPU tensors run the plain
+    twin."""
     if tiles.device.type == "cpu":
         return _cpu_result(retained_scan_words_plain(
             tiles, ftok, flen, fprefix, fhash, fwild, chunk_ids), out)

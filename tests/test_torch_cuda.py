@@ -258,6 +258,36 @@ def test_retained_kernels_on_real_topics_on_cuda(cuda, kind):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.int16, np.int32])
+def test_retained_kernels_refuse_unaligned_tiles_on_cuda(cuda, dtype):
+    """The kernels read tile rows in 16-byte loads: both wrappers refuse a
+    view of the tiles that starts off a 16-byte boundary, launching
+    nothing, and run on one that starts on it."""
+    tiles, fields, ids, _bad, _pids = make_retained_case(RETAINED_CASES[2])
+    tiles = tiles.astype(dtype)
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
+    fargs = [put(a) for a in fields]
+    flat = torch.zeros(tiles.size + 16, dtype=put(tiles).dtype, device=cuda)
+    step = 16 // tiles.itemsize  # elements in 16 bytes
+    for off in (1, step):
+        view = flat[off:off + tiles.size].view(tiles.shape)
+        view.copy_(put(tiles))
+        n0 = RP.retained_scan_gather.launches + RP.retained_scan_full.launches
+        if view.data_ptr() % 16:
+            with pytest.raises(ValueError, match="16-byte"):
+                RP.retained_scan_gather(view, *fargs, put(ids))
+            with pytest.raises(ValueError, match="16-byte"):
+                RP.retained_scan_full(view, *fargs)
+            assert RP.retained_scan_gather.launches + RP.retained_scan_full.launches == n0
+        else:
+            assert torch.equal(RP.retained_scan_gather(view, *fargs, put(ids)),
+                               RP.retained_scan_words_plain(view, *fargs, put(ids)))
+            assert torch.equal(RP.retained_scan_full(view, *fargs),
+                               RP.retained_scan_full_plain(view, *fargs))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 def test_retained_scanner_on_cuda_equals_cpu(cuda):
     """cfg5's draw (20K) and the subscriber mix through the scanner on the
     card and on the CPU: identical fid arrays, both tiers launched."""

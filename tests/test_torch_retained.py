@@ -183,6 +183,46 @@ def test_wrappers_on_cpu_run_the_twins_and_never_fall_back():
     assert TR.retained_scan_gather.launches + TR.retained_scan_full.launches == n0
 
 
+@pytest.mark.parametrize("tier", ["gather", "full"])
+def test_cuda_checks_refuse_unaligned_tiles(tier):
+    """The kernels read tile rows in 16-byte loads: the CUDA path's checks
+    refuse tiles that start off a 16-byte boundary and take those on it."""
+    tiles, fields, ids, _bad, _pids = make_retained_case(RETAINED_CASES[2])
+    t = [torch.from_numpy(a) for a in fields]
+    ids_t = torch.from_numpy(ids) if tier == "gather" else None
+    flat = torch.zeros(tiles.size + 8, dtype=torch.int32)
+    for off in (0, 1, 2, 3, 4):  # int32 elements: 0 and 16 bytes are aligned
+        view = flat[off:off + tiles.size].view(tiles.shape)
+        if view.data_ptr() % 16:
+            with pytest.raises(ValueError, match="16-byte"):
+                TR._check_cuda(f"retained_scan_{tier}", view, t, ids_t)
+        else:
+            TR._check_cuda(f"retained_scan_{tier}", view, t, ids_t)
+
+
+@pytest.mark.parametrize("dtype", [np.int16, np.int32])
+def test_retained_work_counts_a_word_test_per_32_bits(dtype):
+    """The bound's operation count: a test per live 32-bit word of rows,
+    two int16 rows a word (one operation tests both halves), one int32 row;
+    the gather counts only the slots of real tiles, not chunk 0."""
+    from rmqtt_tpu_torch.bench.retained_kernels import retained_work
+    lvl = 2
+    tiles = np.zeros((2, lvl + 3, 128), dtype=dtype)
+    tiles[1, lvl, [0, 1, 2, 9]] = 3  # live rows: words (0, 1), (2, 3), (8, 9)
+    tiles[1, lvl, 4] = -1  # padding
+    ftok = np.array([[5, TR.PLUS_TOK]], dtype=np.int32)  # one literal level
+    fields = [torch.from_numpy(a) for a in
+              (ftok, np.array([2]), np.array([2]), np.array([0]), np.array([0]))]
+    fields = [f.to(torch.int32) for f in fields]
+    per_test = 6 + 2 * 1
+    words = 3 if dtype == np.int16 else 4
+    _, ops_full = retained_work(torch.from_numpy(tiles), fields)
+    assert ops_full == words * per_test
+    ids = torch.tensor([[1, 0, 0]], dtype=torch.int32)
+    _, ops_gather = retained_work(torch.from_numpy(tiles), fields, ids)
+    assert ops_gather == words * per_test
+
+
 # ------------------------------------------------------------- the scanner
 def _differential(mod, rng):
     table = mod.RetainedTable()
