@@ -38,10 +38,18 @@ Phases, each of which fails the run (nonzero exit, no result line):
    bounds;
 4. cfg3 end to end through ``TorchRouter`` on packed tiles: 1M ``gen_mixed``
    filters (seed 0), 32,768 ``gen_topics_uniform`` topics in batches of
-   16,384, pipelined (depth 2) and serial; a 2,048-topic sample checked
-   against the ``TopicTree`` oracle, every topic against the same router
-   path run with the plain words twin on the card; 2,000 removes + 2,000
-   adds (delta uploads), then the sample again;
+   16,384, pipelined (depth 2) and serial, encoded by the native topic
+   encoder (the run fails if the table fell back to the Python encode);
+   two pipelined passes with the fetch guard on (``set_fetch_timeout(60)``:
+   each fetch on a worker thread), equal to the unguarded passes; a
+   2,048-topic sample checked against the ``TopicTree`` oracle, every topic
+   against the same router path run with the plain words twin on the card;
+   2,000 removes + 2,000 adds (delta uploads), then the sample again;
+4e. the topic encode alone on phase 4's table: the 32,768 topics in batches
+   of 16,384 through ``_encode_native`` and ``_encode_py``, each from a
+   cold candidate cache and then warm; the tuples equal array for array
+   (group ids as partitions of the batch); ms per 32,768 topics for each,
+   beside phase 4's encode stage and topics/s;
 4r. cfg5's retained side through ``PartitionedRetainedScanner``: every
    filter of the 512-filter mix in batches of 64 (kernels), equal to the
    same scanner with the plain twins on the card; a 64-filter sample with
@@ -58,7 +66,12 @@ Phases, each of which fails the run (nonzero exit, no result line):
    the topics at QoS 0 with unique payloads; what the subscribers receive
    must equal, as a multiset of (client, topic, payload), what the port's
    ``DefaultRouter`` resolves for the same subscriptions, and
-   ``/api/v1/stats`` must show every batch on the device. 6b:
+   ``/api/v1/stats`` must show every batch on the device, and
+   ``/api/v1/device`` the matcher's profiler seams: the words kernel's
+   first launch noted as a trace and later ones as hits, a full upload,
+   one dispatch record per routing batch of the wave, a non-empty flight
+   ring and the CUDA allocator's census; each broker's log gives the
+   seconds its CUDA probe took at start. 6b:
    ``device.dispatch`` armed with ``times(4,error)`` over ``PUT
    /api/v1/failpoints``, a wave of 1,000 topics: deliveries still equal the
    oracle, the breaker opens, then closes with a full re-upload, and the
@@ -90,6 +103,7 @@ import gc
 import json
 import os
 import random
+import re
 import signal
 import socket
 import subprocess
@@ -124,6 +138,8 @@ from rmqtt_tpu_torch.ops._build import SOURCES, kernel_library
 from rmqtt_tpu_torch.ops.encode import PackedLayout
 from rmqtt_tpu_torch.ops.partitioned import split_buckets
 from rmqtt_tpu_torch.router import Id, SubscriptionOptions, TorchRouter
+from rmqtt_tpu_torch.runtime import NativeEncoder
+from rmqtt_tpu_torch.utils.devfetch import set_fetch_timeout
 
 SMALL_SET = 64  # tiles: 64 KB packed, 176 KB legacy int16 (an SM's L1 is 256 KB)
 KERNEL_SOURCE = {
@@ -687,8 +703,10 @@ def check_oracle(tree: TopicTree, topics, got, what: str) -> None:
 
 
 def phase_cfg3(router: TorchRouter, tree: TopicTree, filters, topics, batch: int,
-               sample: int, churn: int, seed: int) -> list:
-    """→ the per-topic matched filter lists, as routed before the churn."""
+               sample: int, churn: int, seed: int):
+    """→ (the per-topic matched filter lists, as routed before the churn;
+    the pass numbers 4e prints: warm topics/s, guarded topics/s, the
+    serial split's encode ms)."""
     log("[4] cfg3 end to end through TorchRouter (packed tiles)")
     m = router.matcher
     n = len(topics)
@@ -697,13 +715,33 @@ def phase_cfg3(router: TorchRouter, tree: TopicTree, filters, topics, batch: int
     # is heap the garbage collector's full collections rescan
     kernel_filters, *timing = route_all(router, topics, batch, 2)
     _log_pass("cold pass (empty candidate cache), pipelined depth 2", n, *timing)
+    if not isinstance(router.table._nenc, NativeEncoder):
+        raise AssertionError("the table encodes in Python: the native topic "
+                             "encoder (runtime/encode.cc, g++) did not load")
+    log(f"    encoder: {type(router.table._nenc).__name__} (runtime/encode.cc)")
+    nums = {"pipelined": [], "serial": []}
     for depth in (2, 2, 1, 1):
         rows, *timing = route_all(router, topics, batch, depth)
         _log_pass("pipelined depth 2" if depth == 2 else "serial", n, *timing)
+        nums["pipelined" if depth == 2 else "serial"].append(n / timing[0])
         same = rows == kernel_filters
         del rows
         if not same:
             raise AssertionError("repeated passes routed differently")
+    nums["guarded"] = []
+    set_fetch_timeout(60)
+    try:
+        for _ in range(2):
+            rows, *timing = route_all(router, topics, batch, 2)
+            _log_pass("pipelined depth 2 with the fetch guard "
+                      "(set_fetch_timeout(60))", n, *timing)
+            nums["guarded"].append(n / timing[0])
+            same = rows == kernel_filters
+            del rows
+            if not same:
+                raise AssertionError("the guarded pass routed differently")
+    finally:
+        set_fetch_timeout(None)
     log(f"    {sum(len(r) for r in kernel_filters)} routes per pass")
     for depth in (2, 1):
         rows, *timing = route_all(router, topics, batch, depth, matcher_only=True)
@@ -719,6 +757,7 @@ def phase_cfg3(router: TorchRouter, tree: TopicTree, filters, topics, batch: int
     rows, secs, _, gc_note = route_all(router, topics, batch, 1)
     del rows
     m.stage_timing = False
+    nums["encode_ms"] = m.stage_ns["encode"] / 1e6
     expand = secs * 1e9 - sum(m.stage_ns.values())
     log(f"    stage split (serial pass, {secs * 1e3:.3f} ms): "
         + ", ".join(f"{k} {v / 1e6:.3f} ms" for k, v in m.stage_ns.items())
@@ -766,7 +805,62 @@ def phase_cfg3(router: TorchRouter, tree: TopicTree, filters, topics, batch: int
         raise AssertionError(f"churn did not delta-upload ({m.delta_uploads} <= {d0})")
     log(f"    churn: -{len(gone)} +{len(fresh)} filters in {rounds} rounds, delta "
         f"uploads {d0} -> {m.delta_uploads}, full uploads {f0} -> {m.full_uploads}")
-    return kernel_filters
+    return kernel_filters, nums
+
+
+def _same_encode(got, want) -> bool:
+    """Two encode tuples equal array for array (dtypes too), group ids
+    compared as partitions of the batch (padded rows 0 on both sides)."""
+    if got[4] != want[4] or any(g.dtype != w.dtype or not np.array_equal(g, w)
+                                for g, w in zip(got[:4], want[:4])):
+        return False
+    pairs = set(zip(got[5].tolist(), want[5].tolist()))
+    return (len({a for a, _ in pairs}) == len({b for _, b in pairs}) == len(pairs)
+            and all((a == 0) == (b == 0) for a, b in pairs))
+
+
+def phase_encode(router: TorchRouter, topics, batch: int, nums: dict) -> dict:
+    """4e → ms per 32,768 topics of each encoder, cold and warm."""
+    log("[4e] the topic encode on phase 4's table: native against Python")
+    t = router.table
+    batches = [topics[i:i + batch] for i in range(0, len(topics), batch)]
+    scale = 32_768 / len(topics)
+
+    def cold() -> None:
+        t._cand_cache.clear()
+        t._cand_keys_of.clear()
+        t._nenc.cache_clear()
+        t._nenc_entries = 0
+
+    out, encs = {}, {}
+    with t._mu:  # as encode_topics_versioned holds it
+        for name, fn in (("native", t._encode_native), ("python", t._encode_py)):
+            cold()
+            for state in ("cold", "warm"):
+                t0 = time.perf_counter()
+                encs[name, state] = [fn(bt, batch, True) for bt in batches]
+                out[f"{name}_{state}_ms"] = (time.perf_counter() - t0) * 1e3 * scale
+        cold()  # both caches cold and consistent for the phases after
+    want = encs["python", "cold"]
+    for key, got in encs.items():
+        if not all(_same_encode(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"4e: the {key[0]} encode ({key[1]}) differs "
+                                 "from the cold Python encode")
+    del encs, want
+    log(f"    {len(topics)} topics in {len(batches)} batches of {batch}: tuples "
+        "equal array for array (groups as partitions), native and Python, cold "
+        "and warm")
+    log(f"    ms per 32,768 topics: native cold {out['native_cold_ms']:.3f}, warm "
+        f"{out['native_warm_ms']:.3f}; Python cold {out['python_cold_ms']:.3f}, "
+        f"warm {out['python_warm_ms']:.3f}")
+    log(f"    phase 4 (native encode): encode stage {nums['encode_ms']:.3f} ms in "
+        f"the serial split pass; warm topics/s pipelined "
+        f"{[round(x, 1) for x in nums['pipelined']]}, serial "
+        f"{[round(x, 1) for x in nums['serial']]}, pipelined with the fetch guard "
+        f"{[round(x, 1) for x in nums['guarded']]} (the Python encode's warm range in PERF.md §5: "
+        "pipelined 22,776-27,892, serial 22,626-29,707)")
+    log(f"    {card_line()}")
+    return out
 
 
 def phase_legacy(router: TorchRouter, topics, batch: int, want_filters) -> None:
@@ -871,6 +965,19 @@ class BrokerProcess:
     def set_failpoints(self, specs: dict) -> None:
         self._http("PUT", "/api/v1/failpoints", specs)
 
+    def device(self) -> dict:
+        """The broker's ``/api/v1/device`` (device profiler), flight ring
+        included."""
+        return self._http("GET", "/api/v1/device?flight=1")
+
+    def probe_s(self) -> float:
+        """Seconds the broker's CUDA probe took at start, from its log."""
+        m = re.search(r"cuda probe: \d+ device\(s\) in ([\d.]+) s",
+                      self.log_path.read_text(errors="replace"))
+        if m is None:
+            raise AssertionError(f"broker {self.name}: no CUDA probe in its log")
+        return float(m.group(1))
+
     def stop(self) -> None:
         if self.proc.poll() is None:
             self.proc.terminate()
@@ -912,6 +1019,38 @@ def _log_split(before: dict, after: dict, secs: float) -> None:
         f"publish e2e p50/p99 {after['publish_e2e_p50_ms']}/"
         f"{after['publish_e2e_p99_ms']} ms; event-loop lag p99 "
         f"{after.get('host_loop_lag_p99_ms', 0)} ms")
+
+
+def _check_device_profile(p0: dict, p1: dict, s0: dict, s1: dict) -> dict:
+    """6a's ``/api/v1/device`` before (``p0``) and after (``p1``) the wave
+    against the routing gauges ``s0`` / ``s1`` → the counts it prints."""
+    kern = p1["compile"]["kernels"]
+    flight = p1.get("flight", [])
+    got = {
+        "words_traces": kern.get("match_words_packed", {}).get("traces", 0),
+        "kernels": sorted(kern),
+        "cache_hits_wave": p1["compile"]["cache_hits"] - p0["compile"]["cache_hits"],
+        "traces_wave": p1["compile"]["traces"] - p0["compile"]["traces"],
+        "full_uploads": p1["uploads"]["full"],
+        "delta_uploads": p1["uploads"]["delta"],
+        "dispatches_wave": p1["dispatch"]["dispatches"] - p0["dispatch"]["dispatches"],
+        "routing_dispatches_wave": s1["routing_dispatches"] - s0["routing_dispatches"],
+        "flight_len": p1["flight_len"],
+        "flight_hits": sum(r.get("compile") == "hit" for r in flight),
+        "pad_waste": p1["dispatch"]["pad_waste"],
+        "dispatch_p50_p99_ms": (p1["dispatch"]["p50_ms"], p1["dispatch"]["p99_ms"]),
+        "hbm": {k: p1["hbm"].get(k) for k in ("modeled_bytes", "live_arrays",
+                                              "live_arrays_bytes",
+                                              "device_bytes_in_use")},
+    }
+    ok = (got["words_traces"] >= 1 and got["cache_hits_wave"] > 0
+          and got["flight_hits"] > 0 and got["full_uploads"] >= 1
+          and got["dispatches_wave"] == got["routing_dispatches_wave"] > 0
+          and got["flight_len"] > 0 and (got["hbm"]["live_arrays_bytes"] or 0) > 0)
+    if not ok:
+        raise AssertionError(f"6a: /api/v1/device does not show the matcher's "
+                             f"profiler seams: {got}")
+    return got
 
 
 def _all_on_device(d: dict, after: dict) -> bool:
@@ -978,10 +1117,12 @@ async def _broker_drive(dev_broker, hybrid_broker, subs, waves) -> dict:
 
     # 6a: the cfg3 topics through the broker, every batch on the device
     (topics, payloads, want), wave_fail, wave_next = waves
+    p0 = await loop.run_in_executor(None, dev_broker.device)
     s0 = await stats()
     got, secs = await publish_wave(pubs, subscribers, topics, payloads, want,
                                    timeout=900.0)
     s1 = await stats()
+    p1 = await loop.run_in_executor(None, dev_broker.device)
     _check_wave("6a cfg3 wave", got, want)
     d = _device_delta(s0, s1)
     n_del = sum(got.values())
@@ -999,6 +1140,8 @@ async def _broker_drive(dev_broker, hybrid_broker, subs, waves) -> dict:
     if not _all_on_device(d, s1) or d["routing_kernel_launches_packed"] <= 0:
         raise AssertionError(f"6a: not every batch ran on the device: {d}, "
                              f"failover state {s1['routing_failover_state']}")
+    out["devprof"] = _check_device_profile(p0, p1, s0, s1)
+    log(f"    6a /api/v1/device (profiler seams): {out['devprof']}")
 
     # 6b: device.dispatch fails 4 times; no delivery lost, the breaker opens,
     # closes with a full re-upload, and the device serves the next wave
@@ -1084,9 +1227,12 @@ def phase_broker(filters, topics, seed: int, wave: int) -> dict:
             t0 = time.perf_counter()
             for b in brokers:
                 b.wait_ready()
+            probe = {b.name: b.probe_s() for b in brokers}
             log(f"    two brokers listening in {time.perf_counter() - t0:.2f}s "
-                f"(ports {[b.port for b in brokers]})")
+                f"(ports {[b.port for b in brokers]}); CUDA probe at start (s): "
+                f"{probe}")
             out = asyncio.run(_broker_drive(*brokers, subs, waves))
+            out["probe_s"] = probe
         except BaseException:
             for b in brokers:
                 b.abort_with_stacks()
@@ -1222,7 +1368,10 @@ def phase_retained_broker(retained_topics, filters) -> dict:
         broker = BrokerProcess("retain", Path(tmp), {}, "[retain]\ntpu = true\n")
         try:
             broker.wait_ready()
+            probe_s = broker.probe_s()
+            log(f"    broker listening; CUDA probe at start {probe_s:.3f} s")
             out = asyncio.run(_retained_drive(broker, topics, payloads, filters, want))
+            out["probe_s"] = probe_s
         except BaseException:
             broker.abort_with_stacks()
             log(f"    --- broker {broker.name} log (tail) ---\n{broker.tail(120)}")
@@ -1317,11 +1466,13 @@ def main(argv=None) -> int:
 
     MW.match_words_packed.launches = 0
     MW.match_words_legacy.launches = 0
-    want_filters = timed("4", phase_cfg3, packed_router, tree, filters, topics, args.batch,
-                         args.sample, args.churn, args.seed)
+    want_filters, cfg3_nums = timed("4", phase_cfg3, packed_router, tree, filters,
+                                    topics, args.batch, args.sample, args.churn,
+                                    args.seed)
     launches = {"match_words_packed": MW.match_words_packed.launches,
                 "match_words_legacy": MW.match_words_legacy.launches}
     del tree
+    encode = timed("4e", phase_encode, packed_router, topics, args.batch, cfg3_nums)
 
     # cfg5's retained side: the table, its scanner and the oracle, frozen
     # like the routers before the phases that use them
@@ -1384,7 +1535,11 @@ def main(argv=None) -> int:
         f"phase {({k: round(v, 1) for k, v in PHASE_S.items()})}); retained "
         f"scans/s alone {retained['scans_per_s_alone']:.1f}, interleaved "
         f"{retained['scans_per_s_interleaved']:.1f} with "
-        f"{retained['publish_topics_per_s']:.1f} publish topics/s")
+        f"{retained['publish_topics_per_s']:.1f} publish topics/s; encode ms per "
+        f"32,768 topics native / Python (warm) {encode['native_warm_ms']:.3f} / "
+        f"{encode['python_warm_ms']:.3f}; 6a deliveries/s {broker['deliveries_per_s']:.1f} "
+        f"with the profiler seams live; CUDA probe s {broker['probe_s']} "
+        f"{rbroker['probe_s']:.3f}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0

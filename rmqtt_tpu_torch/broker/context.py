@@ -371,10 +371,14 @@ class ServerContext:
             )
             if self.cfg.router == "xla":
                 # the device plane: TorchRouter on the current CUDA device.
-                # It raises without one; the broker never routes "xla" on
-                # the CPU (tests inject TorchRouter(device="cpu") instead)
+                # The card is counted from a subprocess first (cudaprobe),
+                # so a wedged card refuses the start instead of hanging it;
+                # without a card it raises, and the broker never routes
+                # "xla" on the CPU (tests inject TorchRouter(device="cpu"))
                 from rmqtt_tpu_torch.router.torch_router import TorchRouter
+                from rmqtt_tpu_torch.utils.cudaprobe import require_cuda
 
+                require_cuda()
                 router = TorchRouter(is_online=online)
             elif self.cfg.router == "native":
                 from rmqtt_tpu_torch.router.native import NativeRouter

@@ -49,11 +49,10 @@ Prometheus families, ``$SYS/brokers/<n>/device/#``, dashboard cards,
 ONE attribute check — no keys built, no timestamps taken, no ring
 appends — while the surfaces stay shape-stable.
 
-In ``rmqtt_tpu_torch`` the matcher does not call these seams yet
-(``note_jit``, ``note_upload``, ``note_dispatch``, ``note_pad_floor``;
-ROADMAP Queue A item 13): the registry, rollups and flight ring stay empty
-on the device path, while the HBM model (``TorchRouter.device_hbm``)
-reconciles against the CUDA allocator.
+In ``rmqtt_tpu_torch`` the seams are the matcher's launch seams (the words
+kernels, the fused tail, the delta scatter: a new signature is a kernel
+build or a shape's first launch), and the HBM model
+(``TorchRouter.device_hbm``) reconciles against the CUDA allocator.
 
 The profiler is process-global (``DEVPROF``), like the failpoint
 registry: the jit executable caches it models are process-global too,

@@ -47,7 +47,13 @@ class RetainStore:
 
             # the device the mirror will live on, decided now: no CUDA
             # device (and none given) refuses the start, and so does a
-            # kernel that does not build
+            # kernel that does not build. With none given the card is
+            # counted from a subprocess first, so a wedged one refuses
+            # the start instead of hanging it
+            if device is None:
+                from rmqtt_tpu_torch.utils.cudaprobe import require_cuda
+
+                require_cuda()
             self._device = resolve_device(device)
             if self._device.type == "cuda":
                 kernel_library()

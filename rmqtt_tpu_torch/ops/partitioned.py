@@ -31,11 +31,13 @@ import logging
 import os
 import threading
 import time
+from collections import deque
 from typing import Dict, List, NamedTuple, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
 
+from rmqtt_tpu_torch.broker.devprof import DEVPROF as _DEVPROF
 from rmqtt_tpu_torch.core.topic import HASH, PLUS, is_metadata, split_levels
 from rmqtt_tpu_torch.ops.encode import (
     _FIRST_TOK,
@@ -65,6 +67,54 @@ _FP_UPLOAD = FAILPOINTS.register("device.upload")
 
 # partition key kinds
 _K_HASH = ("#",)
+
+
+def _pj(kernel: str, fn, *args, _key: Optional[Tuple] = None, **kwargs):
+    """One PROFILED launch seam, reached only with the device profiler on
+    (broker/devprof.py; sites call ``_pj(...) if _DEVPROF.enabled else
+    fn(...)``, so off it costs one attribute check). The shape key is the
+    arguments' shapes and dtypes plus the static ones, or ``_key`` when the
+    caller buckets it: a never-seen key is a new signature, the first
+    launch of a shape, or the kernel library's build on the very first
+    launch, and the timed wall of that call brackets its cost."""
+    t0 = time.perf_counter_ns()
+    out = fn(*args, **kwargs)
+    key = _DEVPROF.key_of(args, kwargs) if _key is None else _key
+    _DEVPROF.note_jit(kernel, key, time.perf_counter_ns() - t0)
+    return out
+
+
+def _refuse_unported_knobs() -> None:
+    """The JAX matcher's knobs that select modes the port does not run
+    raise here instead of being ignored. Even with none of them set one
+    difference stays: the JAX matcher splits a device table larger than
+    ``RMQTT_SEG_BYTES`` (default 256 MB) into segments, and the port never
+    segments; cfg3's packed table is under that size, cfg5's 10M-filter
+    table is not (ROADMAP Queue A item 9)."""
+    env = os.environ
+    compact = env.get("RMQTT_COMPACT", "global")
+    if compact != "global":
+        raise NotImplementedError(
+            f"RMQTT_COMPACT={compact!r}: the port runs only the global "
+            "compaction; the topk mode is not ported (ROADMAP Queue A item 9)")
+    if env.get("RMQTT_FUSED") == "0":
+        raise NotImplementedError(
+            "RMQTT_FUSED=0: the port runs only the fused pipeline; the "
+            "unfused global path is not ported (ROADMAP Queue A item 9)")
+    if "RMQTT_SEG_BYTES" in env:
+        raise NotImplementedError(
+            "RMQTT_SEG_BYTES: the port does not segment device tables "
+            "(ROADMAP Queue A item 9)")
+    if env.get("RMQTT_PALLAS") == "0":
+        raise NotImplementedError(
+            "RMQTT_PALLAS=0: the port has no verify-and-fall-back; on CUDA it "
+            "always runs its hand-written words kernels (ROADMAP ground rules)")
+
+
+def _scatter_rows(dst: torch.Tensor, idx: torch.Tensor,
+                  rows: torch.Tensor) -> torch.Tensor:
+    """The delta scatter: ``rows`` into ``dst``'s chunks ``idx``, in place."""
+    return dst.index_copy_(0, idx, rows)
 
 
 class _CompactState:
@@ -305,6 +355,11 @@ class PartitionedTable:
         # key registry, which also holds invalidated-entry tombstones)
         # clear wholesale — cheap and rare
         self.cand_cache_max = 65536
+        # the native (C++) encoder: None = not tried yet, False = unavailable
+        # (no g++ here: _encode_py serves); _nenc_entries counts its live
+        # cache entries for the cap
+        self._nenc = None
+        self._nenc_entries = 0
         self._nc_cap = 32
         # narrow dtypes while ids fit (the JAX package's upload narrowing;
         # kept so the encode output and legacy tiles stay identical to it —
@@ -556,13 +611,25 @@ class PartitionedTable:
 
     def _invalidate_cand(self, key: Tuple) -> None:
         """Drop only the candidate-cache entries whose partition key set
-        includes the mutated key (everything else stays warm)."""
+        includes the mutated key (everything else stays warm). Cache keys
+        are tagged by the cache that holds them: ``("p", tuple key)`` for
+        ``_encode_py``'s, ``("n", prefix bytes)`` for the native one's."""
         cache_keys = self._cand_keys_of.pop(key, None)
         if not cache_keys:
             return
+        n = 0
         cache = self._cand_cache
-        self.cand_cache_invalidations += sum(
-            cache.pop(ck, None) is not None for ck in cache_keys)
+        enc = self._nenc
+        for kind, ck in cache_keys:
+            if kind == "p":
+                n += cache.pop(ck, None) is not None
+            elif enc:
+                d = enc.cache_del(ck)
+                n += d
+                # keep the live-entry count honest or steady churn would
+                # trip the size cap with a near-empty cache
+                self._nenc_entries = max(0, self._nenc_entries - d)
+        self.cand_cache_invalidations += n
 
     def _register_cand(self, levels: Sequence[str], cache_key: Tuple) -> None:
         """Record which partition keys a cached candidate set consulted."""
@@ -829,6 +896,9 @@ class PartitionedTable:
         self.delta.reset(self.version)
         self._cand_cache.clear()
         self._cand_keys_of.clear()
+        if self._nenc:
+            self._nenc.cache_clear()
+            self._nenc_entries = 0
 
     def _filter_of_fid(self, fid: int) -> List[str]:
         """Decode a live fid's filter levels back from the row data."""
@@ -889,10 +959,21 @@ class PartitionedTable:
         compare this epoch with their device snapshot's to detect a
         compaction installing between encode and refresh. Returned (not
         stashed on the table) so two matchers sharing one table can't
-        clobber each other's epoch reads. The encoder is the Python one
-        (the JAX package's ``_encode_py``); its C++ encoder is not ported."""
+        clobber each other's epoch reads. The C++ encoder
+        (``runtime.NativeEncoder``) serves whenever the native runtime
+        builds; ``_encode_py`` where it cannot (no g++)."""
+        if self._nenc is None:
+            from rmqtt_tpu_torch.runtime import NativeEncoder
+
+            try:
+                self._nenc = NativeEncoder()
+            except (RuntimeError, OSError):
+                self._nenc = False
         with self._mu:
-            return self._encode_py(topics, pad_batch_to, with_groups), self.layout_epoch
+            epoch = self.layout_epoch
+            if self._nenc:
+                return self._encode_native(topics, pad_batch_to, with_groups), epoch
+            return self._encode_py(topics, pad_batch_to, with_groups), epoch
 
     def _encode_py(
         self, topics: Sequence[str | Sequence[str]], pad_batch_to: Optional[int],
@@ -938,7 +1019,7 @@ class PartitionedTable:
                 ent = (self._candidates_for(levels), self._gid_seq)
                 self._gid_seq += 1
                 cache[ckey] = ent
-                self._register_cand(levels, ckey)
+                self._register_cand(levels, ("p", ckey))
             cand, gid = ent
             groups[j] = gid
             per_topic_chunks.append(cand)
@@ -956,6 +1037,82 @@ class PartitionedTable:
         if with_groups:
             return ttok, tlen, tdollar, chunk_ids, nc, groups + 1  # padded -> 0
         return ttok, tlen, tdollar, chunk_ids, nc
+
+    def _encode_native(
+        self, topics: Sequence[str | Sequence[str]], pad_batch_to: Optional[int],
+        with_groups: bool = False,
+    ):
+        """C++ hot path for ``encode_topics`` (runtime/encode.cc): tokenize +
+        candidate-cache lookup natively; only distinct-prefix cache misses
+        walk the Python partition maps. The same tuple as ``_encode_py``;
+        only the group ids differ (the native side numbers its entries
+        itself), so groups agree with it as partitions of the batch."""
+        enc = self._nenc
+        batch = len(topics)
+        b = pad_batch_to or batch
+        lvl = self.max_levels
+        toks = self.tokens._strs
+        for i in range(enc.tokens_synced, len(toks)):
+            enc.add_token(toks[i], _FIRST_TOK + i)
+        enc.tokens_synced = len(toks)
+        # mutations drop native entries selectively (_invalidate_cand →
+        # cache_del); only a new layout (compaction install) clears it all
+        if enc.cache_epoch != self.layout_epoch:
+            enc.cache_clear()
+            self._nenc_entries = 0
+            enc.cache_epoch = self.layout_epoch
+        if self._nenc_entries >= self.cand_cache_max:
+            # size cap, applied BETWEEN batches only: cache_clear resets the
+            # native gid counter, so clearing mid-batch would let fresh gids
+            # collide with ones already issued to earlier topics of the same
+            # encode (aliasing the grouped upload)
+            enc.cache_clear()
+            self._nenc_entries = 0
+            self._cand_keys_of.clear()
+        if batch and any(not isinstance(t, str) for t in topics):
+            topics = [t if isinstance(t, str) else "/".join(t) for t in topics]
+        blob = ("\x00".join(topics) + "\x00").encode() if batch else b"\x00"
+        while True:
+            nc_cap = self._nc_cap
+            ttok = np.zeros((b, lvl), dtype=np.int32)
+            tlen = np.full((b,), -2, dtype=np.int32)
+            tdollar = np.zeros((b,), dtype=np.uint8)
+            cand = np.zeros((b, nc_cap), dtype=np.int32)
+            counts = np.zeros((b,), dtype=np.int32)
+            group = np.full((b,), -1, dtype=np.int32)  # padded rows stay -1
+            if batch:
+                miss = enc.encode(blob, batch, lvl, ttok, tlen, tdollar, nc_cap,
+                                  cand, counts, group)
+                # dedupe misses by prefix key: a cold cache must not hand
+                # every repeated hot topic its own gid — that would disable
+                # the grouped upload exactly when it pays most
+                put: Dict[bytes, Tuple[int, np.ndarray]] = {}
+                for j in miss:
+                    levels = split_levels(topics[j])
+                    key = "/".join(levels[:3]).encode()
+                    hit = put.get(key)
+                    if hit is None:
+                        chunks = self._candidates_for(levels)
+                        hit = (enc.cache_put(key, chunks), chunks)
+                        self._nenc_entries += 1
+                        put[key] = hit
+                        self._register_cand(levels, ("n", key))
+                    group[j], chunks = hit
+                    counts[j] = len(chunks)
+                    cand[j, : min(len(chunks), nc_cap)] = chunks[:nc_cap]
+            mx = int(counts.max(initial=1))
+            nc = max(1, 1 << (max(1, mx) - 1).bit_length())  # pow2 bucket
+            if nc > nc_cap:
+                self._nc_cap = nc  # sticky: grows, never shrinks
+                continue
+            # the C ABI fills int32: narrow to the upload dtypes; tlen clamps
+            # like the Python path (comparisons are invariant beyond lvl+1,
+            # and hostile topic depths must not wrap int16)
+            out = (ttok.astype(self._tok_dtype(), copy=False),
+                   np.minimum(tlen, lvl + 1).astype(np.int16, copy=False),
+                   tdollar.view(bool),
+                   cand.astype(self._cand_dtype(), copy=False), nc_cap)
+            return out + (group + 1,) if with_groups else out  # padded -> 0
 
 
 def resolve_device(device=None) -> torch.device:
@@ -1062,10 +1219,16 @@ def match_fused(tiles, fid_rows, ttok, tlen, tdollar, chunk_ids, budget: int,
                 use_kernel: bool = True) -> Fused:
     """Words (kernel) → global compaction → fid decode + sort (twin of the
     JAX ``match_fused_impl``)."""
-    words = words_any(tiles, ttok, tlen, tdollar, chunk_ids, layout=layout,
-                      use_kernel=use_kernel)
-    return Fused(fused_compact_decode(words, fid_rows, chunk_ids, budget),
-                 words, chunk_ids)
+    if not _DEVPROF.enabled:
+        words = words_any(tiles, ttok, tlen, tdollar, chunk_ids, layout=layout,
+                          use_kernel=use_kernel)
+        return Fused(fused_compact_decode(words, fid_rows, chunk_ids, budget),
+                     words, chunk_ids)
+    name = "match_words_packed" if layout is not None else "match_words_legacy"
+    words = _pj(name if use_kernel else name + "_plain", words_any, tiles, ttok,
+                tlen, tdollar, chunk_ids, layout=layout, use_kernel=use_kernel)
+    return Fused(_pj("fused_compact_decode", fused_compact_decode, words,
+                     fid_rows, chunk_ids, budget), words, chunk_ids)
 
 
 def match_fused_grouped(tiles, fid_rows, ttok, tlen, tdollar, uniq_cand, inv,
@@ -1369,11 +1532,21 @@ class PartitionedMatcher:
     Env knobs (as in the JAX package): ``RMQTT_PACKED=0`` keeps legacy
     tiles, ``RMQTT_NC_SPLIT=0`` disables the NC split, ``RMQTT_DELTA_UPLOADS=0``
     forces full uploads, ``RMQTT_PAD_FLOOR`` seeds and pins the pad floor.
+    ``RMQTT_COMPACT`` other than ``global``, ``RMQTT_FUSED=0``,
+    ``RMQTT_SEG_BYTES`` and ``RMQTT_PALLAS=0`` raise ``NotImplementedError``.
+
+    With the device profiler on (broker/devprof.py) the matcher feeds it as
+    the JAX matcher does: a shape-key note per launch seam, the uploads,
+    one flight record per dispatch (opened by ``match_submit``, closed by
+    ``match_complete``) and the pad floor's moves. The JAX matcher's
+    ``auto_dump("fused_verify_disagreement")`` belongs to its verify race,
+    which the port does not have.
     """
 
     SPLIT_MIN_BATCH = 1024  # small batches are dispatch-bound, not compute
 
     def __init__(self, table: PartitionedTable, device=None) -> None:
+        _refuse_unported_knobs()
         self.table = table
         self.device = resolve_device(device)
         # sticky pow2 slot budgets PER (padded batch, NC) shape: one shared
@@ -1397,6 +1570,12 @@ class PartitionedMatcher:
         # wait for the device): zero-overhead when off
         self.stage_timing = False
         self.stage_ns = {"encode": 0, "dispatch": 0, "fetch": 0, "decode": 0}
+        # device-profiler flight records awaiting their complete half,
+        # matched by handle IDENTITY; bounded (an abandoned handle flushes
+        # oldest). The lock covers append vs scan: pipelined submits and
+        # completes run on different executor threads (RoutingService)
+        self._prof_pending: deque = deque()
+        self._prof_lock = threading.Lock()
 
     # ------------------------------------------------------ device mirror
     def install(self, state: DeviceState) -> None:
@@ -1439,7 +1618,10 @@ class PartitionedMatcher:
             version, epoch, fid_map, self.device, lvl=lvl)
         self.uploads += 1
         self.full_uploads += 1
-        self.upload_bytes += packed.nbytes + fids2d.nbytes
+        nb = packed.nbytes + fids2d.nbytes
+        self.upload_bytes += nb
+        if _DEVPROF.enabled:
+            _DEVPROF.note_upload("full", nb)
         return self._dev
 
     def _try_delta_refresh(self, t: PartitionedTable, dt, layout) -> bool:
@@ -1469,12 +1651,26 @@ class PartitionedMatcher:
                      if layout is not None else pack_chunk_tiles(t, cids, dt))
             ftiles = pack_fid_chunk_tiles(t, cids)
             idx = to_device(np.asarray(cids, dtype=np.int64), self.device)
-            st.tiles.index_copy_(0, idx, to_device(tiles, self.device))
-            st.fids = st.fids.clone().index_copy_(
-                0, idx, to_device(ftiles, self.device))
+            rows = to_device(tiles, self.device)
+            frows = to_device(ftiles, self.device)
+            if _DEVPROF.enabled:
+                # keyed on the pow2 bucket of the dirty-chunk count, the
+                # JAX package's padded scatter shape (the port does not pad)
+                bucket = 1 << (len(cids) - 1).bit_length()
+                _pj("delta_scatter", _scatter_rows, st.tiles, idx, rows,
+                    _key=_DEVPROF.key_of((st.tiles,), {}) + (bucket,))
+                st.fids = _pj("delta_scatter_fids", _scatter_rows,
+                              st.fids.clone(), idx, frows,
+                              _key=_DEVPROF.key_of((st.fids,), {}) + (bucket,))
+            else:
+                _scatter_rows(st.tiles, idx, rows)
+                st.fids = _scatter_rows(st.fids.clone(), idx, frows)
             self.uploads += 1
             self.delta_uploads += 1
-            self.upload_bytes += tiles.nbytes + ftiles.nbytes
+            nb = tiles.nbytes + ftiles.nbytes
+            self.upload_bytes += nb
+            if _DEVPROF.enabled:
+                _DEVPROF.note_upload("delta", nb)
         st.snap = _Snap(t.version, st.snap.epoch, t._fid_of_row)
         return True
 
@@ -1487,7 +1683,48 @@ class PartitionedMatcher:
     def match_submit(self, topics: Sequence[str], pad_to_pow2: bool = True):
         """Encode + dispatch WITHOUT fetching: the device work is queued on
         the current stream, so the caller can encode batch N+1 while N
-        computes, then ``match_complete`` each handle in order."""
+        computes, then ``match_complete`` each handle in order.
+
+        With the device profiler on, the submit half opens a flight record
+        (compile hit-vs-trace, batch/padded rows) that ``match_complete``
+        closes with the fetch/decode stage deltas; off = one attribute
+        check."""
+        if not _DEVPROF.enabled:
+            return self._submit_impl(topics, pad_to_pow2)
+        # the traces delta is best-effort under concurrency: another
+        # matcher tracing between the marks can mislabel this record
+        # 'trace' — the registry totals themselves stay exact
+        tr0 = _DEVPROF.traces
+        sn0 = dict(self.stage_ns) if self.stage_timing else None
+        t0 = time.perf_counter_ns()
+        meta: dict = {}
+        h = self._submit_impl(topics, pad_to_pow2, _meta=meta)
+        traces = _DEVPROF.traces - tr0
+        padded = meta.get("padded", len(topics))
+        rec = {
+            "ts": round(time.time(), 3),
+            "kind": h[0],
+            "batch": len(topics),
+            "padded": padded,
+            "pad_waste": round(1.0 - len(topics) / padded, 4) if padded else 0.0,
+            "traces": traces,
+            "compile": "trace" if traces else "hit",
+            "submit_ns": time.perf_counter_ns() - t0,
+        }
+        old = None
+        with self._prof_lock:
+            self._prof_pending.append((h, rec, sn0))
+            if len(self._prof_pending) > 16:
+                # abandoned handle (caller never completed it): flush so the
+                # record still reaches the ring and the deque stays bounded
+                _h, old, _sn = self._prof_pending.popleft()
+        if old is not None:
+            # ring-only: it never completed, so it is not a dispatch
+            _DEVPROF.note_abandoned(old)
+        return h
+
+    def _submit_impl(self, topics: Sequence[str], pad_to_pow2: bool = True,
+                     _meta: Optional[dict] = None):
         t = self.table
         if t.compact_async:
             # churn-triggered background compaction: the rebuild runs on
@@ -1502,6 +1739,10 @@ class PartitionedMatcher:
         padded = b
         if pad_to_pow2:
             padded = max(1 << (b - 1).bit_length(), self._pad_floor)
+        if _meta is not None:
+            # the profiler's pad-waste source — an out-param, not an
+            # attribute: concurrent submits must not cross-attribute
+            _meta["padded"] = padded
         t_enc = time.perf_counter_ns() if self.stage_timing else 0
         while True:
             enc, enc_epoch = t.encode_topics_versioned(
@@ -1625,6 +1866,14 @@ class PartitionedMatcher:
                                       self.use_kernel)
         return ("f", b, out, g, st.fids)
 
+    @staticmethod
+    def _redecode(words, fids, chunk_ids, g: int) -> torch.Tensor:
+        """A budget regrow: the fused tail again on the submit-time words."""
+        if _DEVPROF.enabled:
+            return _pj("fused_compact_decode", fused_compact_decode, words,
+                       fids, chunk_ids, g)
+        return fused_compact_decode(words, fids, chunk_ids, g)
+
     def _submit_fused_split(self, st: DeviceState, tt, tlen, tdollar,
                             chunk_ids, split):
         """Fused NC split-dispatch: topics bucketed host-side by candidate
@@ -1656,14 +1905,14 @@ class PartitionedMatcher:
         _tag, b, out, g, fids = handle
         t0 = time.perf_counter_ns() if self.stage_timing else 0
         while True:
-            arr = fetch(out.wire)
+            arr = fetch(out.wire, "fused match fetch")
             cn = arr[g:].astype(np.int64)
             n = int(cn.sum())
             if n <= g:
                 break
             g = self._regrow(n, tuple(out.chunk_ids.shape))
             out = out._replace(
-                wire=fused_compact_decode(out.words, fids, out.chunk_ids, g))
+                wire=self._redecode(out.words, fids, out.chunk_ids, g))
         if t0:
             now = time.perf_counter_ns()
             self.stage_ns["fetch"] += now - t0
@@ -1693,7 +1942,7 @@ class PartitionedMatcher:
         _tag, b, order, meta, outs, wire, budgets, fids = handle
         t0 = time.perf_counter_ns() if self.stage_timing else 0
         while True:
-            arr = fetch(wire)
+            arr = fetch(wire, "fused match fetch")
             segs = []
             regrow = list(budgets)
             ok = True
@@ -1710,9 +1959,8 @@ class PartitionedMatcher:
             if ok:
                 break
             budgets = tuple(regrow)
-            wire = torch.cat([
-                fused_compact_decode(f.words, fids, f.chunk_ids, g)
-                for f, g in zip(outs, budgets)])
+            wire = torch.cat([self._redecode(f.words, fids, f.chunk_ids, g)
+                              for f, g in zip(outs, budgets)])
         if t0:
             now = time.perf_counter_ns()
             self.stage_ns["fetch"] += now - t0
@@ -1733,7 +1981,44 @@ class PartitionedMatcher:
 
     def match_complete(self, handle) -> List[np.ndarray]:
         """Block on a ``match_submit`` handle → per-topic fid arrays
-        (ascending)."""
+        (ascending); with the device profiler on, closes the handle's
+        flight record."""
+        if not _DEVPROF.enabled:
+            if self._prof_pending:
+                # records from a just-disabled profiler must still be
+                # dropped: a pending record holds the handle (device
+                # buffers included) and would pin it
+                self._prof_drop(handle)
+            return self._complete_impl(handle)
+        ent = self._prof_drop(handle)
+        if ent is None:
+            # a handle submitted before the profiler flipped on
+            return self._complete_impl(handle)
+        _h, rec, sn0 = ent
+        fused0 = self.fused_batches
+        t0 = time.perf_counter_ns()
+        out = self._complete_impl(handle)
+        rec["complete_ns"] = time.perf_counter_ns() - t0
+        rec["fused"] = self.fused_batches > fused0
+        rec["routes"] = int(sum(len(r) for r in out))
+        if sn0 is not None:
+            # per-stage ns deltas; pipelined overlap can smear attribution
+            # between ADJACENT records (stage counters are matcher-wide)
+            rec["stage_ns"] = {k: self.stage_ns[k] - sn0[k] for k in self.stage_ns}
+        _DEVPROF.note_dispatch(rec, rec["submit_ns"] + rec["complete_ns"])
+        return out
+
+    def _prof_drop(self, handle):
+        """Pop (by handle IDENTITY) this handle's pending flight record, if
+        any; a handle from before the profiler was on returns None."""
+        with self._prof_lock:
+            for i, cand in enumerate(self._prof_pending):
+                if cand[0] is handle:
+                    del self._prof_pending[i]
+                    return cand
+        return None
+
+    def _complete_impl(self, handle) -> List[np.ndarray]:
         if handle[0] == "e":
             return []
         if handle[0] == "f":
@@ -1749,14 +2034,21 @@ class PartitionedMatcher:
         pad UP to it), unless ``RMQTT_PAD_FLOOR`` pinned the floor. The
         port compiles nothing per shape, so this only latches the floor."""
         sizes = [int(s) for s in batch_sizes if s > 0]
-        if sizes and not self._pad_floor_pinned:
+        if not sizes:
+            return
+        old = self._pad_floor
+        if not self._pad_floor_pinned:
             self._pad_floor = max(self._pad_floor, max(sizes))
+        if _DEVPROF.enabled:
+            _DEVPROF.note_pad_floor(self._pad_floor, old)
 
     def set_pad_floor(self, floor: int) -> int:
         """Set the sticky pad floor to an exact value (may LOWER it, unlike
         ``prewarm``). → the old floor."""
         old = self._pad_floor
         self._pad_floor = max(1, int(floor))
+        if self._pad_floor != old and _DEVPROF.enabled:
+            _DEVPROF.note_pad_floor(self._pad_floor, old)
         return old
 
     def hbm_breakdown(self) -> dict:

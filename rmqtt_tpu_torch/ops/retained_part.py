@@ -558,7 +558,7 @@ class PartitionedRetainedScanner:
         if handle[0] == "empty":
             return [np.empty(0, dtype=np.int64) for _ in range(handle[1])]
         _, out, metas, order, nfilters, fid_of_row = handle
-        flat = fetch(out)
+        flat = fetch(out, "retained partitioned scan fetch")
         res: List[Optional[np.ndarray]] = [None] * nfilters
         off = 0
         for (mode, b, nc, chunk_ids), idxs in zip(metas, order):

@@ -73,8 +73,14 @@ class TorchRouter(Router):
     ) -> None:
         """``device``: where the table and the matching live — the current
         CUDA device when None (raises without one), ``"cpu"`` for the plain
-        PyTorch twins of the kernels (tests). On CUDA the words kernels are
-        built here, so a kernel that does not build refuses the start."""
+        PyTorch twins of the kernels (tests). With no device the card is
+        first counted from a subprocess (``utils/cudaprobe.py``), so a
+        wedged card raises instead of hanging. On CUDA the words kernels
+        are built here, so a kernel that does not build refuses the start."""
+        if device is None:
+            from rmqtt_tpu_torch.utils.cudaprobe import require_cuda
+
+            require_cuda()
         self.table = table or PartitionedTable()
         self.matcher = PartitionedMatcher(self.table, device=device)
         if self.matcher.device.type == "cuda":

@@ -3,10 +3,13 @@ with ctypes.
 
 It provides the native topic trie (``NativeTrie``: the host mirror behind
 ``TorchRouter``'s small-batch hybrid and device failover, and the
-``native`` router), the MQTT frame scanner and PUBLISH encoder the codec
-uses (``codec_scan``, ``codec_encode_publish``) and topic validation
-(``topic_validate``). The batched topic encoder (``NativeEncoder`` in the
-JAX package) is not bound here yet (ROADMAP Queue A item 8).
+``native`` router), the batched topic encoder (``NativeEncoder``: the
+default encode of ``ops/partitioned.py``'s ``PartitionedTable``), the MQTT
+frame scanner and PUBLISH encoder the codec uses (``codec_scan``,
+``codec_encode_publish``) and topic validation (``topic_validate``). The
+native match decoders (``rt_match_decode*``) serve only the topk and
+unfused matcher modes, which the port does not run yet (ROADMAP Queue A
+item 9), so they are not bound.
 
 The shared library is built at first use with ``g++`` into
 ``rmqtt_tpu_torch/_build/``, under a name keyed on a hash of the sources
@@ -99,6 +102,24 @@ def load() -> Optional[ctypes.CDLL]:
             ctypes.c_int64,
         ]
         lib.rt_trie_match_batch.restype = ctypes.c_int64
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        lib.rt_enc_new.restype = ctypes.c_void_p
+        lib.rt_enc_free.argtypes = [ctypes.c_void_p]
+        lib.rt_enc_add_token.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                                         ctypes.c_int32, ctypes.c_int32]
+        lib.rt_enc_cache_clear.argtypes = [ctypes.c_void_p]
+        lib.rt_enc_cache_del.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                                         ctypes.c_int32]
+        lib.rt_enc_cache_del.restype = ctypes.c_int32
+        lib.rt_enc_cache_put.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                                         ctypes.c_int32, i32p, ctypes.c_int32]
+        lib.rt_enc_cache_put.restype = ctypes.c_int32
+        lib.rt_enc_encode.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64, ctypes.c_int32,
+            i32p, i32p, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int32,
+            i32p, i32p, i32p, i32p,
+        ]
+        lib.rt_enc_encode.restype = ctypes.c_int64
         lib.rt_codec_scan.argtypes = [
             ctypes.c_char_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int64,
             i64p, ctypes.c_int64, i64p, ctypes.POINTER(ctypes.c_int32),
@@ -225,3 +246,70 @@ class NativeTrie:
             rows.append(out[off : off + c].copy())
             off += c
         return rows
+
+
+def _i32p(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+
+
+class NativeEncoder:
+    """ctypes wrapper over the C++ batched topic encoder (runtime/encode.cc).
+
+    Owns the native token-dict mirror and candidate-chunk cache for one
+    ``PartitionedTable``; the table syncs tokens incrementally and drops
+    cache entries on mutation (see partitioned.py ``_encode_native``).
+
+    The library is built here from the sources in ``runtime/``, so
+    ``rt_enc_cache_del`` is always present: the JAX package's branches
+    for a stale prebuilt library without it (``has_cache_del``) have no
+    case to serve and are left out.
+    """
+
+    def __init__(self) -> None:
+        lib = load()
+        if lib is None:
+            raise RuntimeError("native runtime unavailable (no C++ toolchain?)")
+        self._lib = lib
+        self._ptr = ctypes.c_void_p(lib.rt_enc_new())
+        self.tokens_synced = 0  # count of TokenDict entries pushed so far
+        self.cache_epoch = -1  # table.layout_epoch the cache was built under
+
+    def __del__(self) -> None:
+        ptr = getattr(self, "_ptr", None)
+        if ptr:
+            self._lib.rt_enc_free(ptr)
+            self._ptr = None
+
+    def add_token(self, s: str, tid: int) -> None:
+        b = s.encode()
+        self._lib.rt_enc_add_token(self._ptr, b, len(b), tid)
+
+    def cache_clear(self) -> None:
+        """Drop every cached prefix entry and restart the gid counter."""
+        self._lib.rt_enc_cache_clear(self._ptr)
+
+    def cache_del(self, key: bytes) -> int:
+        """Erase one prefix entry (selective invalidation); returns the
+        number of entries dropped."""
+        return self._lib.rt_enc_cache_del(self._ptr, key, len(key))
+
+    def cache_put(self, key: bytes, chunks: np.ndarray) -> int:
+        """→ the gid the native side assigned to this entry (authoritative —
+        no Python-side mirror counter to drift out of sync)."""
+        chunks = np.ascontiguousarray(chunks, dtype=np.int32)
+        return self._lib.rt_enc_cache_put(
+            self._ptr, key, len(key), _i32p(chunks), len(chunks))
+
+    def encode(self, blob: bytes, n: int, max_levels: int, ttok: np.ndarray,
+               tlen: np.ndarray, tdollar: np.ndarray, nc_cap: int,
+               cand: np.ndarray, cand_counts: np.ndarray,
+               group: np.ndarray) -> np.ndarray:
+        """Returns the indices of topics whose prefix key missed the cache;
+        ``group`` receives each topic's candidate-row gid (-1 on miss)."""
+        miss = np.empty(n, dtype=np.int32)
+        nmiss = self._lib.rt_enc_encode(
+            self._ptr, blob, n, max_levels, _i32p(ttok), _i32p(tlen),
+            tdollar.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            nc_cap, _i32p(cand), _i32p(cand_counts), _i32p(group), _i32p(miss),
+        )
+        return miss[:nmiss]

@@ -61,7 +61,9 @@ def rewrite(text: str) -> str:
 DELIBERATE = {
     "broker/__main__.py": "main() runs under the __main__ check, so importing "
                           "the module (the boundary test does) starts nothing",
-    "broker/context.py": "router 'xla' builds TorchRouter (no tpuprobe); "
+    "broker/context.py": "router 'xla' runs the CUDA probe (utils/cudaprobe.py: "
+                         "a subprocess count that refuses the start, never a "
+                         "CPU fallback) and builds TorchRouter; "
                          "[cluster] and [durability] raise NotImplementedError "
                          "at construction (refuse_unported); retain_device= "
                          "goes to RetainStore; stats() adds the retained-scan "
@@ -71,12 +73,13 @@ DELIBERATE = {
                           "the lock (a plain Lock deadlocks the broker)",
     "broker/retain.py": "the device mirror runs on the port's scanner on an "
                         "explicit device: tpu=True resolves it at construction "
-                        "(no CUDA device and none given raises) and builds "
-                        "the kernels there, instead of tpuprobe's "
+                        "(with none given, after the CUDA probe, which refuses "
+                        "the start without a usable card) and builds the "
+                        "kernels there, instead of tpuprobe's "
                         "ensure_safe_platform at the first scan; device_stats() "
                         "counts scans and kernel launches",
     "broker/devprof.py": "the HBM census reads the CUDA allocator instead of "
-                         "jax.live_arrays(); the matcher seams are not wired",
+                         "jax.live_arrays()",
     "broker/routing.py": "stats() also reports the words kernels' launch "
                          "counts (routing_kernel_launches_packed/_legacy); a "
                          "kernel fault rejects the batch instead of failing "
@@ -88,7 +91,9 @@ DELIBERATE = {
     "conf.py": "instantiate_plugins raises NotImplementedError for every "
                "plugin (plugins/ and bridge/ are not ported)",
     "runtime/__init__.py": "the port's own binding: builds with g++ into "
-                           "_build/, binds the trie, codec and validation only",
+                           "_build/, binds the trie, the topic encoder "
+                           "(NativeEncoder, without the stale-library branches), "
+                           "codec and validation, not the match decoders",
     "router/torch_router.py": "TorchRouter, the port of XlaRouter",
 }
 

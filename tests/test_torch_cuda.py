@@ -373,3 +373,54 @@ def test_broker_retained_replay_on_cuda(cuda):
     got, launched, scans = asyncio.run(asyncio.wait_for(run(), timeout=120.0))
     assert got == want and sum(want.values()) > 1000
     assert launched >= len(filters) and scans == len(filters)
+
+
+@pytest.mark.cuda
+def test_native_encode_on_the_card_host_equals_python(cuda):
+    """The card's host has g++ (nvcc needs it): the table encodes through
+    ``NativeEncoder``, equal to ``_encode_py`` (group ids as partitions)."""
+    from rmqtt_tpu_torch.runtime import NativeEncoder
+
+    rng = random.Random(6)
+    nat, py = TP.PartitionedTable(), TP.PartitionedTable()
+    py._nenc = False
+    for f in gen_mixed(rng, 2000):
+        assert nat.add(f) == py.add(f)
+    topics = gen_topics_uniform(rng, 500) + ["$SYS/a", "a//b", "a/b/", "ü/日本",
+                                             "/".join(["d"] * 12)]
+    for pad in (None, 512):
+        got = nat.encode_topics(topics, pad_batch_to=pad, with_groups=True)
+        want = py.encode_topics(topics, pad_batch_to=pad, with_groups=True)
+        assert got[4] == want[4]
+        for g, w in zip(got[:4], want[:4]):
+            assert g.dtype == w.dtype and np.array_equal(g, w)
+        labels = [{}, {}]
+        for a, b in zip(got[5], want[5]):
+            assert (a == 0) == (b == 0)
+            assert labels[0].setdefault(int(a), int(b)) == int(b)
+            assert labels[1].setdefault(int(b), int(a)) == int(a)
+    assert isinstance(nat._nenc, NativeEncoder)
+
+
+@pytest.mark.cuda
+def test_fetch_guard_on_cuda(cuda):
+    """``RMQTT_FETCH_TIMEOUT``'s guarded copy, on a worker thread, equals
+    the plain fetch, also for work queued on a side stream."""
+    from rmqtt_tpu_torch.utils import devfetch
+
+    x = torch.arange(1 << 20, dtype=torch.int32, device=cuda)
+    want = devfetch.fetch(x * 3)
+    side = torch.cuda.Stream()
+    try:
+        devfetch.set_fetch_timeout(60)
+        assert np.array_equal(devfetch.fetch(x * 3, "guarded"), want)
+        with torch.cuda.stream(side):
+            y = torch.empty_like(x)
+            side.wait_stream(torch.cuda.current_stream())
+            torch.cuda._sleep(50_000_000)  # the copy must wait for this
+            torch.mul(x, 3, out=y)
+            got = devfetch.fetch(y, "side stream")
+        assert np.array_equal(got, want)
+    finally:
+        devfetch.set_fetch_timeout(None)
+        devfetch._loaded = False

@@ -73,9 +73,12 @@ def _assert_tables_equal(jt, tt, topics):
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_table_parity_random_ops(seed):
     rng = random.Random(seed)
+    # the Python encoders against each other (their group ids agree value
+    # for value); tests/test_torch_encode_native.py holds the native ones
     jt = JP.PartitionedTable()
-    jt._nenc = False  # the port encodes in Python; compare like with like
+    jt._nenc = False
     tt = TP.PartitionedTable()
+    tt._nenc = False
     live = {}
     topics = _random_topics(rng, 120)
     for step in range(1500):
@@ -130,7 +133,7 @@ def test_table_parity_unpackable_and_wide_tokens():
     past 0x7FFF widens legacy tiles and topic tokens to int32 — both the
     same in the port."""
     jt, tt = JP.PartitionedTable(), TP.PartitionedTable()
-    jt._nenc = False
+    jt._nenc = tt._nenc = False
     deep = "/".join(["d"] * 31)
     for f in ["a/b", "a/+/c/#", deep]:
         assert tt.add(f) == jt.add(f)
