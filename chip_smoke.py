@@ -62,7 +62,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
    process with ``RMQTT_HYBRID_MAX=0`` (every batch on the device), driven
    over TCP by the load client of ``bench/mqtt_load.py``. 6a: 64 subscriber
    connections subscribe the 1M filters (dealt round-robin, SUBSCRIBE
-   packets of 1,000), 4 publishers publish the first ``--wave`` (8,192) of
+   packets of 1,000; to this broker and 6c's second one at once), 4
+   publishers publish the first ``--wave`` (4,096) of
    the topics at QoS 0 with unique payloads; what the subscribers receive
    must equal, as a multiset of (client, topic, payload), what the port's
    ``DefaultRouter`` resolves for the same subscriptions, and
@@ -82,11 +83,38 @@ Phases, each of which fails the run (nonzero exit, no result line):
    60,000 retained messages (the first 60,000 cfg5 topics, unique
    payloads), then 64 subscribers each SUBSCRIBE one filter of the mix; the
    replay must equal, as a multiset, what ``RetainTree`` gives, through the
-   retained kernels, with no message dropped;
+   retained kernels, with no message dropped. 6e: ``--workers 4 --fabric
+   --router xla`` (``RMQTT_HYBRID_MAX=0``) carrying 6a's subscriptions and
+   wave, one publisher at least on another worker than the owner (one is
+   reconnected until the kernel places it there), so publishes take the
+   submit path: the deliveries equal the oracle, the owner (worker 1) matched
+   every publish (none degraded to a worker's own table) with one
+   words-kernel launch a routing batch, no worker died; it prints the
+   subscribe time, deliveries/s, the owner's batches and topics a batch,
+   each worker's CUDA probe and the owner's ``/api/v1/device``. 6f: a
+   broker with ``[retain] tpu = true`` and ``[durability]`` on a sqlite
+   store in the run's temp directory (compaction past 2,000,000 journal
+   rows, so never within the phase; messages live an hour) takes 6d's
+   60,000 retained messages,
+   then the 1M filters on 64 persistent MQTT 5 sessions (no retained
+   replay), and is killed with SIGKILL; restarted on the same store with
+   every batch on the device, it must recover 1M subscriptions, 60,000
+   retained messages and 64 sessions, deliver a wave of the first
+   ``RECOVERY_WAVE`` topics of 6a's exactly, one words-kernel launch a
+   batch, and replay each session's retained filter exactly on the
+   retained kernels; it prints the recovery, the restart to listening and
+   the first publish after the restart (the full upload). 6f runs while
+   6e's workers take their subscriptions (its times are taken beside that
+   load); 6e's wave runs alone;
 7. one pipelined packed-tile pass under ``torch.profiler``: the device's
    busy share and its time by kernel;
 8. the kernel summary line (launches on each main path, equality with the
    plain twins, times beside the bound).
+
+Cut to fit the 1,200 s a run may take (PERF.md §4): 6a's and 6e's wave
+to 4,096 of the cfg3 topics (``--wave``; 8,192 before this slice), 6f's
+wave after the restart to 2,048 (``RECOVERY_WAVE``). The 1M filters and
+the 60,000 retained messages are not cut.
 
 The tables and the oracles are built before the phases that use them, and
 the garbage collector is then frozen, as ``bench.py`` does for the same
@@ -879,6 +907,7 @@ def phase_legacy(router: TorchRouter, topics, batch: int, want_filters) -> None:
 # ---------------------------------------------------------------- phase 6
 ROOT = Path(__file__).resolve().parent
 BROKER_CMD = (sys.executable, "-m", "rmqtt_tpu_torch.broker")
+BROKER_ROUTER = "xla"
 BROKER_SUBSCRIBERS = 64  # 6a: connections the filters are dealt over
 BROKER_PUBLISHERS = 4
 FAULT_WAVE = 1000  # 6b: topics per wave
@@ -891,12 +920,36 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def _children(pid: int) -> list:
+    """Pids of the live (not zombie) children of process ``pid``, from
+    /proc."""
+    out = []
+    for d in Path("/proc").iterdir():
+        if d.name.isdigit():
+            try:
+                state, ppid = (d / "stat").read_text().rsplit(")", 1)[1].split()[:2]
+            except OSError:
+                continue
+            if int(ppid) == pid and state != "Z":
+                out.append(int(d.name))
+    return out
+
+
+def _signal(pid: int, sig) -> None:
+    try:
+        os.kill(pid, sig)
+    except ProcessLookupError:
+        pass
+
+
 class BrokerProcess:
     """``python -m rmqtt_tpu_torch.broker --router xla`` as a child process
-    with ``[http_api]`` on a port of its own; its output goes to a log file
-    in ``workdir``. ``stop`` ends it (``main``'s ``finally``)."""
+    with ``[http_api]`` on a port of its own (with ``--workers``, worker 1's),
+    plus ``args``; its output, and its workers', goes to a log file in
+    ``workdir``. ``stop`` ends it and every worker (``main``'s ``finally``)."""
 
-    def __init__(self, name: str, workdir: Path, env: dict, toml: str = "") -> None:
+    def __init__(self, name: str, workdir: Path, env: dict, toml: str = "",
+                 args=()) -> None:
         self.name = name
         self.port, self.http_port = _free_port(), _free_port()
         cfg = workdir / f"{name}.toml"
@@ -912,9 +965,12 @@ class BrokerProcess:
         full_env = {**os.environ, **env, "PYTHONFAULTHANDLER": "1",
                     "PYTHONPATH": os.pathsep.join(
                         p for p in (str(ROOT), os.environ.get("PYTHONPATH")) if p)}
+        self.started = time.perf_counter()
         self.proc = subprocess.Popen(
-            [*BROKER_CMD, "--router", "xla", "--port", str(self.port), "--config", str(cfg)],
+            [*BROKER_CMD, "--router", BROKER_ROUTER, "--port", str(self.port), "--config",
+             str(cfg), *args],
             stdout=self._log, stderr=subprocess.STDOUT, env=full_env, cwd=ROOT)
+        self._workers: list = []
 
     def tail(self, n: int = 40) -> str:
         return "\n".join(self.log_path.read_text(errors="replace").splitlines()[-n:])
@@ -937,13 +993,33 @@ class BrokerProcess:
 
     def abort_with_stacks(self) -> None:
         """On a failed phase: SIGABRT makes the broker's fault handler
-        write every thread's stack to its log before it dies."""
-        if self.proc.poll() is None:
-            self.proc.send_signal(signal.SIGABRT)
-            try:
-                self.proc.wait(timeout=30)
-            except subprocess.TimeoutExpired:
-                pass
+        write every thread's stack to its log before it dies. A ``--workers``
+        supervisor is held stopped meanwhile (it would respawn them), then
+        told to stop the group."""
+        if self.proc.poll() is not None:
+            return
+        workers = _children(self.proc.pid)
+        self._workers = workers
+        if workers:
+            self.proc.send_signal(signal.SIGSTOP)
+        for pid in workers or [self.proc.pid]:
+            _signal(pid, signal.SIGABRT)
+        deadline = time.perf_counter() + 30
+        while workers and _children(self.proc.pid) and time.perf_counter() < deadline:
+            time.sleep(0.2)
+        if workers:
+            # pending until SIGCONT: the supervisor stops instead of respawning
+            self.proc.send_signal(signal.SIGTERM)
+            self.proc.send_signal(signal.SIGCONT)
+        try:
+            self.proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            pass
+
+    def kill(self) -> None:
+        """SIGKILL, as a crash: no shutdown of any kind."""
+        self.proc.kill()
+        self.proc.wait(timeout=30)
 
     def _http(self, method: str, path: str, body=None):
         req = urllib.request.Request(
@@ -970,22 +1046,35 @@ class BrokerProcess:
         included."""
         return self._http("GET", "/api/v1/device?flight=1")
 
+    def fabric(self) -> dict:
+        """The owner's ``/api/v1/fabric``."""
+        return self._http("GET", "/api/v1/fabric")
+
+    def probes_s(self) -> list:
+        """Seconds each process's CUDA probe took at start, from the log."""
+        return [float(s) for s in re.findall(
+            r"cuda probe: \d+ device\(s\) in ([\d.]+) s",
+            self.log_path.read_text(errors="replace"))]
+
     def probe_s(self) -> float:
         """Seconds the broker's CUDA probe took at start, from its log."""
-        m = re.search(r"cuda probe: \d+ device\(s\) in ([\d.]+) s",
-                      self.log_path.read_text(errors="replace"))
-        if m is None:
+        probes = self.probes_s()
+        if not probes:
             raise AssertionError(f"broker {self.name}: no CUDA probe in its log")
-        return float(m.group(1))
+        return probes[0]
 
     def stop(self) -> None:
+        workers = self._workers or (_children(self.proc.pid)
+                                    if self.proc.poll() is None else [])
         if self.proc.poll() is None:
             self.proc.terminate()
             try:
-                self.proc.wait(timeout=30)
+                self.proc.wait(timeout=60)
             except subprocess.TimeoutExpired:
                 self.proc.kill()
                 self.proc.wait(timeout=30)
+        for pid in workers:  # a supervisor that did not stop its group
+            _signal(pid, signal.SIGKILL)
         self._log.close()
 
 
@@ -1097,15 +1186,19 @@ async def _broker_drive(dev_broker, hybrid_broker, subs, waves) -> dict:
     """6a, 6b and 6c against the two running brokers → the numbers."""
     out: dict = {}
     n_filters = sum(len(f) for f in subs.values())
-    # one broker at a time, so each subscribe time is that broker's alone
-    t0 = time.perf_counter()
-    subscribers = await connect_and_subscribe(dev_broker.port, subs)
-    out["subscribe_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    hybrid_subscribers = await connect_and_subscribe(hybrid_broker.port, subs)
-    out["subscribe_s_hybrid_broker"] = time.perf_counter() - t0
+    # both brokers at once (each a process of its own), to fit the run's
+    # time since 6e and 6f: each time runs from its first CONNECT to its
+    # last SUBACK
+    async def subscribe(port: int) -> tuple:
+        t0 = time.perf_counter()
+        clients = await connect_and_subscribe(port, subs)
+        return clients, time.perf_counter() - t0
+
+    (subscribers, out["subscribe_s"]), (hybrid_subscribers,
+                                        out["subscribe_s_hybrid_broker"]) = (
+        await asyncio.gather(subscribe(dev_broker.port), subscribe(hybrid_broker.port)))
     log(f"    subscribe: {n_filters} filters over {len(subs)} connections in "
-        f"{out['subscribe_s']:.3f} s (device broker), then "
+        f"{out['subscribe_s']:.3f} s (device broker) and, at the same time, "
         f"{out['subscribe_s_hybrid_broker']:.3f} s (hybrid broker)")
     loop = asyncio.get_running_loop()
 
@@ -1198,11 +1291,10 @@ async def _broker_drive(dev_broker, hybrid_broker, subs, waves) -> dict:
     return out
 
 
-def phase_broker(filters, topics, seed: int, wave: int) -> dict:
-    """Phase 6a-c → their numbers (``launches_packed``: the words kernel's
-    launches in the broker process over 6a, from its stats before and
-    after the wave of the first ``wave`` topics)."""
-    log("[6] the broker: python -m rmqtt_tpu_torch.broker --router xla")
+def broker_waves(filters, topics, seed: int, wave: int) -> tuple:
+    """The brokers' subscriptions (the filters dealt over 64 client ids)
+    and waves, each (topics, payloads, expected deliveries): 6a's (the
+    first ``wave`` cfg3 topics, also 6e's and 6f's), 6b's two."""
     t0 = time.perf_counter()
     subs = {f"s{k}": filters[k::BROKER_SUBSCRIBERS] for k in range(BROKER_SUBSCRIBERS)}
     oracle = oracle_router(subs)
@@ -1218,6 +1310,22 @@ def phase_broker(filters, topics, seed: int, wave: int) -> dict:
     gc.freeze()
     log(f"    DefaultRouter oracle: {len(filters)} filters, expected deliveries "
         f"{[sum(w[2].values()) for w in waves]} in {time.perf_counter() - t0:.2f}s")
+    return subs, waves
+
+
+def wave_prefix(wave, n: int) -> tuple:
+    """The first ``n`` publishes of ``wave`` and their expected deliveries."""
+    topics, payloads, want = wave
+    keep = set(payloads[:n])
+    return (topics[:n], payloads[:n],
+            collections.Counter({k: v for k, v in want.items() if k[2] in keep}))
+
+
+def phase_broker(subs, waves) -> dict:
+    """Phase 6a-c → their numbers (``launches_packed``: the words kernel's
+    launches in the broker process over 6a, from its stats before and
+    after the wave of the first ``wave`` topics)."""
+    log("[6] the broker: python -m rmqtt_tpu_torch.broker --router xla")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_broker_") as tmp:
         brokers = []
         try:
@@ -1263,24 +1371,27 @@ def proc_cpu_s(pid: int) -> float:
     return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
 
 
+def _check_retained_scans(what: str, d: dict, n_filters: int) -> None:
+    """Every SUBSCRIBE's retained lookup ran on the scanner, and both
+    retained kernels launched."""
+    if d["retained_scans"] != n_filters or d["retained_scan_launches_gather"] <= 0 \
+            or d["retained_scan_launches_full"] <= 0:
+        raise AssertionError(f"{what}: not every lookup ran on the retained kernels: {d}")
+
+
 def _retained_delta(before: dict, after: dict) -> dict:
     keys = ("retained_scans", "retained_scan_launches_gather",
             "retained_scan_launches_full")
     return {k: after[k] - before[k] for k in keys}
 
 
-async def _retained_drive(broker, topics, payloads, filters, want) -> dict:
-    """6d against the running broker → its numbers."""
-    out: dict = {}
+async def _retained_ingest(broker, topics, payloads, what: str) -> tuple:
+    """``topics`` published retained at QoS 0 by 8 connections, each waiting
+    for a PINGREQ round trip every ``RETAINED_PACE`` publishes → (seconds
+    until the broker stores them all, the publishers, its stats then)."""
     loop = asyncio.get_running_loop()
-
-    async def stats():
-        return await loop.run_in_executor(None, broker.stats)
-
     pubs = [await LoadClient.connect(broker.port, f"rpub{k}")
             for k in range(RETAINED_PUBLISHERS)]
-    s_pre = await stats()
-    cpu0 = proc_cpu_s(broker.proc.pid)
     t0 = time.perf_counter()
 
     async def run(k: int, pub: LoadClient) -> None:
@@ -1295,11 +1406,38 @@ async def _retained_drive(broker, topics, payloads, filters, want) -> dict:
         await pub.ping(RETAINED_INGEST_S)
 
     await asyncio.gather(*(run(k, p) for k, p in enumerate(pubs)))
-    while (s0 := await stats())["retaineds"] < len(topics):
+    while (s := await loop.run_in_executor(None, broker.stats))["retaineds"] < len(topics):
         if time.perf_counter() - t0 > RETAINED_INGEST_S:
-            raise AssertionError(f"6d: {s0['retaineds']} of {len(topics)} retained")
+            raise AssertionError(f"{what}: {s['retaineds']} of {len(topics)} retained")
         await asyncio.sleep(0.1)
-    out["publish_s"] = time.perf_counter() - t0
+    return time.perf_counter() - t0, pubs, s
+
+
+def retained_want(topics, payloads, filters, client_ids) -> collections.Counter:
+    """The replay each client of ``client_ids`` must get when it subscribes
+    its filter of ``filters`` over the retained ``topics``: a multiset of
+    (client id, topic, payload), from ``RetainTree``."""
+    oracle = RetainTree()
+    for i, t in enumerate(topics):
+        oracle.insert(t, i)
+    want = collections.Counter()
+    for cid, f in zip(client_ids, filters):
+        for _lv, i in oracle.matches(f):
+            want[(cid, topics[i], payloads[i])] += 1
+    return want
+
+
+async def _retained_drive(broker, topics, payloads, filters, want) -> dict:
+    """6d against the running broker → its numbers."""
+    out: dict = {}
+    loop = asyncio.get_running_loop()
+
+    async def stats():
+        return await loop.run_in_executor(None, broker.stats)
+
+    s_pre = await stats()
+    cpu0 = proc_cpu_s(broker.proc.pid)
+    out["publish_s"], pubs, s0 = await _retained_ingest(broker, topics, payloads, "6d")
     out["ingest_cpu_s"] = proc_cpu_s(broker.proc.pid) - cpu0
     log(f"    6d: {len(topics)} retained publishes stored in {out['publish_s']:.3f} s "
         f"({len(topics) / out['publish_s']:.1f} publishes/s) by "
@@ -1350,14 +1488,8 @@ def phase_retained_broker(retained_topics, filters) -> dict:
     topics = retained_topics[:RETAINED_BROKER_TOPICS]
     filters = filters[:RETAINED_SUBSCRIBERS]
     payloads = [b"r%d" % i for i in range(len(topics))]
-    oracle = RetainTree()
-    for i, t in enumerate(topics):
-        oracle.insert(t, i)
-    want = collections.Counter()
-    for j, f in enumerate(filters):
-        for _lv, i in oracle.matches(f):
-            want[(f"rsub{j}", topics[i], payloads[i])] += 1
-    del oracle
+    want = retained_want(topics, payloads, filters,
+                         [f"rsub{j}" for j in range(len(filters))])
     # the client loop below allocates per publish: the ~0.6M expected
     # replays must not be rescanned by every full collection it triggers
     gc.collect()
@@ -1386,9 +1518,7 @@ def phase_retained_broker(retained_topics, filters) -> dict:
             f"{sum(missing.values())} missing (e.g. {list(missing)[:3]}), "
             f"{sum(extra.values())} extra (e.g. {list(extra)[:3]})")
     d = out["delta"]
-    if d["retained_scans"] != len(filters) or d["retained_scan_launches_gather"] <= 0 \
-            or d["retained_scan_launches_full"] <= 0:
-        raise AssertionError(f"6d: not every lookup ran on the retained kernels: {d}")
+    _check_retained_scans("6d", d, len(filters))
     if any(out["drops"].values()):
         raise AssertionError(f"6d: messages dropped: {out['drops']}")
     log(f"    6d: first SUBSCRIBE: SUBACK after {out['first_suback_s']:.3f} s, replay done "
@@ -1399,6 +1529,319 @@ def phase_retained_broker(retained_topics, filters) -> dict:
         f"(multiset of client, topic, payload); scans {d}; drops {out['drops']}")
     log(f"    {card_line()}")
     return out
+
+
+FABRIC_WORKERS = 4  # 6e: worker processes; worker 1 owns the table
+SESSION_EXPIRY_S = 7200  # 6f: the persistent sessions outlive the crash
+RECOVERY_WAVE = 2_048  # 6f: publishes after the restart (cut from 6a's wave)
+
+
+def _poll(cond, what: str, timeout: float) -> float:
+    """Until ``cond()`` (polled every 0.2 s) → seconds it took; raises
+    after ``timeout``."""
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"{what}: not within {timeout} s")
+        time.sleep(0.2)
+    return time.perf_counter() - t0
+
+
+def _owner_wave_checks(what: str, s0: dict, s1: dict, n_topics: int) -> dict:
+    """A wave's routing at the broker that owns the table: every publish
+    matched there (no degraded publish, which a worker would match on its
+    own table), every batch on the device, one words-kernel launch a batch."""
+    d = _device_delta(s0, s1)
+    d["items"] = s1["routing_dispatched_items"] - s0["routing_dispatched_items"]
+    if d["items"] != n_topics:
+        raise AssertionError(f"{what}: the owner matched {d['items']} of "
+                             f"{n_topics} publishes")
+    if not _all_on_device(d, s1) or not (
+            d["routing_kernel_launches_packed"] == d["routing_dispatches"] > 0):
+        raise AssertionError(f"{what}: words-kernel launches are not one a routing "
+                             f"batch on the device: {d}")
+    return d
+
+
+async def _fabric_drive(broker, subs, wave, alongside) -> tuple:
+    """6e against the running workers, with the coroutine ``alongside``
+    (6f) run while they take their subscriptions → (6e's numbers, what
+    ``alongside`` returned)."""
+    out: dict = {}
+    loop = asyncio.get_running_loop()
+
+    async def stats():
+        return await loop.run_in_executor(None, broker.stats)
+
+    n_filters = sum(len(f) for f in subs.values())
+    t0 = time.perf_counter()
+
+    async def subscribe():
+        clients = await connect_and_subscribe(broker.port, subs)
+        out["subscribe_s"] = time.perf_counter() - t0
+        # the other workers forward their sessions' filters to the owner
+        while (s := await stats())["subscriptions"] < n_filters:
+            if time.perf_counter() - t0 > 900:
+                raise AssertionError(f"6e: the owner holds {s['subscriptions']} of "
+                                     f"{n_filters} subscriptions")
+            await asyncio.sleep(0.2)
+        out["owner_table_s"] = time.perf_counter() - t0
+        log(f"    6e subscribe: {n_filters} filters over {len(subs)} connections in "
+            f"{out['subscribe_s']:.3f} s; the owner's table complete after "
+            f"{out['owner_table_s']:.3f} s")
+        return clients
+
+    subscribers, other = await asyncio.gather(subscribe(), alongside)
+    # the kernel places each connection on a worker; the submit path needs a
+    # publisher on another worker than the owner, whose stats count its own
+    base = (await stats())["connections"]
+    pubs = [await LoadClient.connect(broker.port, f"pub{k}")
+            for k in range(BROKER_PUBLISHERS)]
+    for _ in range(100):
+        if (await stats())["connections"] - base < len(pubs):
+            break
+        await pubs[-1].close()
+        while (await stats())["connections"] - base >= len(pubs):
+            await asyncio.sleep(0.05)
+        pubs[-1] = await LoadClient.connect(broker.port, pubs[-1].client_id)
+    else:
+        raise AssertionError("6e: every publisher on the owner")
+    topics, payloads, want = wave
+    p0 = await loop.run_in_executor(None, broker.device)
+    s0, f0 = await stats(), await loop.run_in_executor(None, broker.fabric)
+    got, secs = await publish_wave(pubs, subscribers, topics, payloads, want,
+                                   timeout=900.0)
+    s1, f1 = await stats(), await loop.run_in_executor(None, broker.fabric)
+    p1 = await loop.run_in_executor(None, broker.device)
+    _check_wave("6e fabric wave", got, want)
+    d = _owner_wave_checks("6e", s0, s1, len(topics))
+    n_del = sum(got.values())
+    served = {k: f1["counters"][k] - f0["counters"][k] for k in ("batches", "items")}
+    if served["items"] <= 0:
+        raise AssertionError(f"6e: no publish was submitted to the owner: {served}")
+    out.update(publishes=len(topics), deliveries=n_del, publish_s=secs,
+               deliveries_per_s=n_del / secs, launches_packed=d["routing_kernel_launches_packed"],
+               dispatches=d["routing_dispatches"], topics_per_batch=len(topics) / d["routing_dispatches"],
+               submitted=served, owner_submit_fallbacks=f1["counters"]["submit_fallbacks"],
+               registered_workers=f1["registered_workers"])
+    log(f"    6e: {len(topics)} publishes -> {n_del} deliveries, first publish to last "
+        f"delivery {secs:.3f} s = {n_del / secs:.1f} messages/s delivered "
+        f"({len(topics) / secs:.1f} publishes/s); the owner: {d['routing_dispatches']} "
+        f"routing batches ({out['topics_per_batch']:.2f} topics a batch), words "
+        f"kernel launches {d['routing_kernel_launches_packed']}, every publish matched "
+        f"there ({d['items']}; {served['items']} of them submitted by the other "
+        f"workers in {served['batches']} fabric batches)")
+    _log_split(s0, s1, secs)
+    out["devprof"] = _check_device_profile(p0, p1, s0, s1)
+    log(f"    6e owner /api/v1/device: {out['devprof']}")
+    for c in [*subscribers, *pubs]:
+        await c.close()
+    return out, other
+
+
+async def _recovery_write(broker, subs, rtopics, rpayloads) -> dict:
+    """6f up to the crash: the retained store, then the persistent
+    sessions' subscriptions (no retained replay; every SUBACK follows the
+    journal's commit of its filters and of every record before them), then
+    SIGKILL with the sessions connected."""
+    out: dict = {}
+    out["ingest_s"], pubs, _s = await _retained_ingest(broker, rtopics, rpayloads, "6f")
+    for c in pubs:
+        await c.close()
+    t0 = time.perf_counter()
+    sessions = await connect_and_subscribe(broker.port, subs, session_expiry=SESSION_EXPIRY_S,
+                                           retain_handling=2)
+    out["subscribe_s"] = time.perf_counter() - t0
+    s = await asyncio.get_running_loop().run_in_executor(None, broker.stats)
+    out["journal"] = {k: s[k] for k in ("durability_appends", "durability_commits",
+                                        "durability_compactions", "durability_journal_len")}
+    log(f"    6f: {len(rtopics)} retained stored in {out['ingest_s']:.3f} s, then "
+        f"{sum(len(f) for f in subs.values())} filters subscribed on {len(subs)} "
+        f"persistent sessions in {out['subscribe_s']:.3f} s; journal {out['journal']}")
+    broker.kill()
+    log(f"    SIGKILL: exit status {broker.proc.returncode}")
+    for c in sessions:
+        await c.close()
+    return out
+
+
+async def _recovery_drive(broker, subs, wave, filters, replay_want) -> dict:
+    """6f after the restart: the sessions return, a wave over the recovered
+    routes, then each session's retained replay."""
+    out: dict = {}
+    loop = asyncio.get_running_loop()
+
+    async def stats():
+        return await loop.run_in_executor(None, broker.stats)
+
+    sessions = [await LoadClient.connect(broker.port, cid, session_expiry=SESSION_EXPIRY_S)
+                for cid in subs]
+    if not all(c.session_present for c in sessions):
+        raise AssertionError("6f: a session was not recovered")
+    pubs = [await LoadClient.connect(broker.port, f"pub{k}")
+            for k in range(BROKER_PUBLISHERS)]
+    topics, payloads, want = wave
+    s0 = await stats()
+    # the first publish after the restart pays the table's full upload
+    first = collections.Counter({k: v for k, v in want.items() if k[2] == payloads[0]})
+    got1, out["first_publish_s"] = await publish_wave(pubs[:1], sessions, topics[:1],
+                                                      payloads[:1], first, timeout=300.0)
+    p1 = await loop.run_in_executor(None, broker.device)
+    rec = [r for r in p1.get("flight", []) if not r.get("abandoned")]
+    out["first_dispatch"] = ({k: rec[-1].get(k) for k in ("batch", "total_ms",
+                                                          "submit_ns", "stage_ns")}
+                             if rec else None)
+    out["full_upload_bytes"] = p1["uploads"]["full_bytes"]
+    rest = want - first
+    got, secs = await publish_wave(pubs, sessions, topics[1:], payloads[1:], rest,
+                                   timeout=900.0)
+    s1 = await stats()
+    _check_wave("6f post-recovery wave", got + got1, want)
+    d = _owner_wave_checks("6f", s0, s1, len(topics))
+    n_del = sum(got.values()) + sum(got1.values())
+    out.update(publishes=len(topics), deliveries=n_del, publish_s=secs,
+               deliveries_per_s=n_del / secs, launches_packed=d["routing_kernel_launches_packed"],
+               dispatches=d["routing_dispatches"])
+    log(f"    6f: first publish after the restart delivered in "
+        f"{out['first_publish_s'] * 1e3:.3f} ms (its dispatch record {out['first_dispatch']}; "
+        f"full uploads so far {p1['uploads']['full']}, {out['full_upload_bytes']} B); "
+        f"the rest of the wave: {len(topics) - 1} publishes -> {sum(got.values())} "
+        f"deliveries in {secs:.3f} s; {d['routing_dispatches']} routing batches, "
+        f"words kernel launches {d['routing_kernel_launches_packed']}")
+    # each session's retained replay, from the recovered store
+    m0 = await loop.run_in_executor(None, broker.metrics)
+    marks = {c.client_id: len(c.received) for c in sessions}
+    per_client = collections.Counter()
+    for (cid, _t, _p), n in replay_want.items():
+        per_client[cid] += n
+    t0 = time.perf_counter()
+    await asyncio.gather(*(c.subscribe([f]) for c, f in zip(sessions, filters)))
+    await asyncio.gather(*(c.wait_count(marks[c.client_id] + per_client[c.client_id], 600.0)
+                           for c in sessions))
+    out["replay_s"] = time.perf_counter() - t0
+    await asyncio.sleep(0.5)  # a quiet window for extras
+    replay = collections.Counter()
+    for c in sessions:
+        for topic, payload, _t in c.received[marks[c.client_id]:]:
+            replay[(c.client_id, topic, payload)] += 1
+    s2 = await stats()
+    m1 = await loop.run_in_executor(None, broker.metrics)
+    if replay != replay_want:
+        missing, extra = replay_want - replay, replay - replay_want
+        raise AssertionError(
+            f"6f: the replay differs from the RetainTree oracle: "
+            f"{sum(missing.values())} missing (e.g. {list(missing)[:3]}), "
+            f"{sum(extra.values())} extra (e.g. {list(extra)[:3]})")
+    out["retained"] = _retained_delta(s1, s2)
+    r = out["retained"]
+    _check_retained_scans("6f", r, len(filters))
+    drops = {k: m1.get(k, 0) - m0.get(k, 0) for k in m1
+             if k.startswith("messages.dropped")}
+    if any(drops.values()):
+        raise AssertionError(f"6f: messages dropped: {drops}")
+    log(f"    6f: {len(sessions)} replays, {sum(replay.values())} messages equal to the "
+        f"RetainTree oracle in {out['replay_s']:.3f} s; scans {r}; mirror build "
+        f"{s2['retained_mirror_build_ms']:.3f} ms")
+    for c in [*sessions, *pubs]:
+        await c.close()
+    return out
+
+
+async def _recovery(brokers, tmp: Path, toml: str, subs, wave, retained, filters) -> dict:
+    """All of 6f: its first broker's journal (``_recovery_write``), the
+    SIGKILL, a restart on the same store, the recovered counts, then
+    ``_recovery_drive`` → its numbers. Each broker started is appended to
+    ``brokers`` (the caller stops them)."""
+    loop = asyncio.get_running_loop()
+    rtopics, rpayloads, replay_want = retained
+    # before the crash, the default hybrid: the retained ingest meets an
+    # empty table
+    brokers.append(BrokerProcess("durable", tmp, {}, toml))
+    await loop.run_in_executor(None, brokers[-1].wait_ready)
+    out = await _recovery_write(brokers[-1], subs, rtopics, rpayloads)
+    brokers.append(BrokerProcess("recovered", tmp, {"RMQTT_HYBRID_MAX": "0"}, toml))
+    recovered = brokers[-1]
+    await loop.run_in_executor(None, recovered.wait_ready, 900.0)
+    out["restart_to_listening_s"] = time.perf_counter() - recovered.started
+    s = await loop.run_in_executor(None, recovered.stats)
+    rec = {k: s[f"durability_recovered_{k}"]
+           for k in ("subs", "retained", "sessions", "inflight")}
+    out.update(recovered=rec, recovery_ms=s["durability_recovery_ms"],
+               probe_s=recovered.probe_s())
+    log(f"    6f restarted: listening {out['restart_to_listening_s']:.3f} s after "
+        f"the start (CUDA probe {out['probe_s']:.3f} s), recovery "
+        f"{out['recovery_ms']:.3f} ms: {rec}")
+    n_filters = sum(len(f) for f in subs.values())
+    if (rec["subs"], rec["retained"], rec["sessions"]) != (
+            n_filters, len(rtopics), len(subs)) or s["subscriptions"] != n_filters:
+        raise AssertionError(f"6f: recovered {rec}, table {s['subscriptions']}")
+    out.update(await _recovery_drive(recovered, subs, wave_prefix(wave, RECOVERY_WAVE),
+                                     filters, replay_want))
+    await loop.run_in_executor(None, recovered.stop)
+    return out
+
+
+def phase_fabric_recovery(subs, wave, retained_topics, filters) -> tuple:
+    """6e and 6f → their numbers. 6e: ``--workers 4 --fabric --router xla``
+    carrying 6a's subscriptions and ``wave`` (``launches_packed``: the
+    owner's words-kernel launches over it). 6f: ``[durability]`` with
+    ``--router xla`` and ``[retain] tpu = true``, SIGKILL, then a restart on
+    the same store, a wave of ``RECOVERY_WAVE`` of the same topics and 64
+    replays. To fit the run's time, all of 6f runs while 6e's workers take
+    their subscriptions (the fabric forwards each filter to the owner: the
+    longest part of the run); 6e's wave runs alone after both."""
+    log(f"[6e] the fabric: --workers {FABRIC_WORKERS} --fabric --router xla, and "
+        f"[6f] recovery: [durability] on a sqlite store, SIGKILL, restart")
+    rtopics = retained_topics[:RETAINED_BROKER_TOPICS]
+    rpayloads = [b"r%d" % i for i in range(len(rtopics))]
+    filters = filters[:len(subs)]
+    retained = (rtopics, rpayloads, retained_want(rtopics, rpayloads, filters, list(subs)))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fabric_") as ftmp, \
+            tempfile.TemporaryDirectory(prefix="chip_smoke_recovery_") as tmp:
+        # compaction above the 1.06M records the phase journals: at the
+        # default 4,096 each compaction re-folds the whole 1M-filter state on
+        # a thread of the broker's process (PERF.md §7), and the run
+        # measures the recovery, which folds the journal either way. The
+        # first lines go to the [mqtt] section BrokerProcess opens: retained
+        # messages without an expiry live an hour, not the default 5
+        # minutes, so the ones stored before the crash outlive the phase
+        toml = ("max_message_expiry = 3600.0\n[retain]\ntpu = true\n"
+                f'[durability]\nenable = true\npath = "{tmp}/durability.db"\n'
+                "compact_min = 2000000\n")
+        brokers = []
+        try:
+            brokers.append(BrokerProcess("fabric", Path(ftmp), {"RMQTT_HYBRID_MAX": "0"},
+                                         args=("--workers", str(FABRIC_WORKERS),
+                                               "--fabric")))
+            fabric = brokers[0]
+            fabric.wait_ready()
+            others = list(range(2, FABRIC_WORKERS + 1))
+            _poll(lambda: fabric.fabric().get("registered_workers") == others,
+                  "6e: workers registered with the owner", 300)
+            ready_s = time.perf_counter() - fabric.started
+            probes = fabric.probes_s()
+            if len(probes) != FABRIC_WORKERS:
+                raise AssertionError(f"6e: {len(probes)} CUDA probes in the log")
+            log(f"    6e: {FABRIC_WORKERS} workers up and registered {ready_s:.2f} s "
+                f"after the start; CUDA probe at each start (s): {probes}")
+            out_e, out = asyncio.run(_fabric_drive(
+                fabric, subs, wave,
+                _recovery(brokers, Path(tmp), toml, subs, wave, retained, filters)))
+            text = fabric.log_path.read_text(errors="replace")
+            if "died" in text or "crash-looping" in text:
+                raise AssertionError("6e: a worker died during the run")
+            out_e.update(probe_s=probes, ready_s=ready_s)
+        except BaseException:
+            for b in brokers:
+                b.abort_with_stacks()
+                log(f"    --- broker {b.name} log (tail) ---\n{b.tail(160)}")
+            raise
+        finally:
+            for b in brokers:
+                b.stop()
+    log(f"    {card_line()}: 6e subscribe {out_e['subscribe_s']:.3f} s, "
+        f"{out_e['deliveries_per_s']:.1f} deliveries/s through {FABRIC_WORKERS} workers")
+    return out_e, out
 
 
 def phase_profile(router: TorchRouter, topics, batch: int) -> None:
@@ -1423,9 +1866,9 @@ def main(argv=None) -> int:
     ap.add_argument("--churn", type=int, default=2_000)
     ap.add_argument("--retained", type=int, default=1_000_000,
                     help="cfg5 retained draws of phases 3r and 4r")
-    ap.add_argument("--wave", type=int, default=8_192,
-                    help="publishes of the broker's wave 6a (host-bound at 1-4 "
-                         "topics a batch: per-batch numbers need no more)")
+    ap.add_argument("--wave", type=int, default=4_096,
+                    help="publishes of the brokers' waves 6a and 6e (host-bound "
+                         "at 1-4 topics a batch: per-batch numbers need no more)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -1496,13 +1939,20 @@ def main(argv=None) -> int:
 
     # the brokers run in child processes: their launches are the
     # differences of their own counters (/api/v1/stats) across 6a and 6d
-    broker = timed("6a-c", phase_broker, filters, topics, args.seed, args.wave)
+    subs, waves = timed("broker oracle", broker_waves, filters, topics, args.seed,
+                        args.wave)
+    broker = timed("6a-c", phase_broker, subs, waves)
     if broker["launches_packed"] <= 0:
         raise AssertionError("match_words_packed was never launched in the broker")
     rbroker = timed("6d", phase_retained_broker, retained_topics, sub_filters)
+    fabric, recovered = timed("6e+6f", phase_fabric_recovery, subs, waves[0],
+                              retained_topics, sub_filters)
+    del subs, waves
     by_path = {
         "match_words_packed": {"router, phase 4": launches["match_words_packed"],
-                               "broker, phase 6a": broker["launches_packed"]},
+                               "broker, phase 6a": broker["launches_packed"],
+                               "fabric owner, phase 6e": fabric["launches_packed"],
+                               "recovered broker, phase 6f": recovered["launches_packed"]},
         "match_words_legacy": {"router with RMQTT_PACKED=0, phase 5":
                                launches["match_words_legacy"]},
     }
@@ -1510,7 +1960,9 @@ def main(argv=None) -> int:
         name = f"retained_scan_{mode}"
         by_path[name] = {"scanner at 1M, phase 4r": launches[name],
                          "broker, phase 6d":
-                         rbroker["delta"][f"retained_scan_launches_{mode}"]}
+                         rbroker["delta"][f"retained_scan_launches_{mode}"],
+                         "recovered broker, phase 6f":
+                         recovered["retained"][f"retained_scan_launches_{mode}"]}
     timed("7", phase_profile, packed_router, topics, args.batch)
 
     kernels = []
@@ -1538,8 +1990,11 @@ def main(argv=None) -> int:
         f"{retained['publish_topics_per_s']:.1f} publish topics/s; encode ms per "
         f"32,768 topics native / Python (warm) {encode['native_warm_ms']:.3f} / "
         f"{encode['python_warm_ms']:.3f}; 6a deliveries/s {broker['deliveries_per_s']:.1f} "
-        f"with the profiler seams live; CUDA probe s {broker['probe_s']} "
-        f"{rbroker['probe_s']:.3f}")
+        f"with the profiler seams live; 6e deliveries/s {fabric['deliveries_per_s']:.1f} "
+        f"through {FABRIC_WORKERS} fabric workers; 6f recovery "
+        f"{recovered['recovery_ms']:.3f} ms, restart to listening "
+        f"{recovered['restart_to_listening_s']:.3f} s; CUDA probe s {broker['probe_s']} "
+        f"{rbroker['probe_s']:.3f} {fabric['probe_s']} {recovered['probe_s']:.3f}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0

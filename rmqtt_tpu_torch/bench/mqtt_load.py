@@ -17,7 +17,7 @@ import collections
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
-from rmqtt_tpu_torch.broker.codec import MqttCodec, packets as pk
+from rmqtt_tpu_torch.broker.codec import MqttCodec, packets as pk, props as P
 from rmqtt_tpu_torch.router.base import Id, SubscriptionOptions
 from rmqtt_tpu_torch.router.default import DefaultRouter
 
@@ -29,11 +29,12 @@ class LoadClient:
     """One MQTT connection. ``received`` holds (topic, payload, arrival
     ``perf_counter``) for every PUBLISH the broker sent, in order."""
 
-    def __init__(self, client_id: str, reader, writer) -> None:
+    def __init__(self, client_id: str, reader, writer, version: int = pk.V311) -> None:
         self.client_id = client_id
         self.reader = reader
         self.writer = writer
-        self.codec = MqttCodec(pk.V311)
+        self.codec = MqttCodec(version)
+        self.session_present = False
         self.received: List[Tuple[str, bytes, float]] = []
         self._arrived = asyncio.Event()
         self._acks: Dict[tuple, asyncio.Future] = {}
@@ -41,18 +42,24 @@ class LoadClient:
         self._task: Optional[asyncio.Task] = None
 
     @classmethod
-    async def connect(cls, port: int, client_id: str,
-                      host: str = "127.0.0.1") -> "LoadClient":
+    async def connect(cls, port: int, client_id: str, host: str = "127.0.0.1",
+                      session_expiry: int = 0) -> "LoadClient":
+        """MQTT 3.1.1 with a clean session; with ``session_expiry`` > 0 an
+        MQTT 5 connection that resumes or creates a persistent session
+        outliving it by that many seconds (``session_present`` says which)."""
+        version = pk.V5 if session_expiry else pk.V311
         reader, writer = await asyncio.open_connection(host, port)
-        c = cls(client_id, reader, writer)
+        c = cls(client_id, reader, writer, version)
         c._task = asyncio.get_running_loop().create_task(c._read_loop())
         ack = c._expect(("connack",))
-        writer.write(c.codec.encode(pk.Connect(client_id=client_id,
-                                               protocol=pk.V311,
-                                               clean_start=True, keepalive=0)))
+        writer.write(c.codec.encode(pk.Connect(
+            client_id=client_id, protocol=version, clean_start=not session_expiry,
+            keepalive=0, properties=({P.SESSION_EXPIRY_INTERVAL: session_expiry}
+                                     if session_expiry else {}))))
         connack = await asyncio.wait_for(ack, 30.0)
         if connack.reason_code != 0:
             raise ConnectionError(f"{client_id}: CONNACK {connack.reason_code}")
+        c.session_present = connack.session_present
         return c
 
     def _expect(self, key: tuple) -> asyncio.Future:
@@ -93,16 +100,21 @@ class LoadClient:
         self._pid = self._pid % 65535 + 1
         return self._pid
 
-    async def subscribe(self, filters: Sequence[str], qos: int = 0) -> None:
+    async def subscribe(self, filters: Sequence[str], qos: int = 0,
+                        retain_handling: int = 0) -> None:
         """SUBSCRIBE ``filters`` in packets of ``SUBSCRIBE_CHUNK``, each
-        sent after the previous SUBACK; every filter must be granted."""
+        sent after the previous SUBACK; every filter must be granted.
+        ``retain_handling`` 2 (MQTT 5) asks for no retained replay."""
+        opts = pk.SubOpts(qos=qos, retain_handling=retain_handling)
         for i in range(0, len(filters), SUBSCRIBE_CHUNK):
             part = filters[i:i + SUBSCRIBE_CHUNK]
             pid = self._next_pid()
             ack = self._expect(("suback", pid))
             self.writer.write(self.codec.encode(pk.Subscribe(
-                pid, [(f, pk.SubOpts(qos=qos)) for f in part])))
-            suback = await asyncio.wait_for(ack, 120.0)
+                pid, [(f, opts) for f in part])))
+            # a fabric worker asks the table's owner once per filter, so one
+            # packet can take minutes while 64 connections subscribe at once
+            suback = await asyncio.wait_for(ack, 600.0)
             bad = [f for f, rc in zip(part, suback.reason_codes) if rc >= 0x80]
             if bad or len(suback.reason_codes) != len(part):
                 raise RuntimeError(f"{self.client_id}: SUBACK refused {bad[:4]}")
@@ -208,10 +220,15 @@ async def publish_wave(publishers: Sequence[LoadClient],
     return got, last - t0
 
 
-async def connect_and_subscribe(port: int, subs: Dict[str, Sequence[str]]
-                                ) -> List[LoadClient]:
+async def connect_and_subscribe(port: int, subs: Dict[str, Sequence[str]],
+                                session_expiry: int = 0,
+                                retain_handling: int = 0) -> List[LoadClient]:
     """One connection per client id of ``subs``, each subscribing its
-    filters (all clients at once). → the connected clients."""
-    clients = [await LoadClient.connect(port, cid) for cid in subs]
-    await asyncio.gather(*(c.subscribe(list(subs[c.client_id])) for c in clients))
+    filters (all clients at once); ``session_expiry`` and
+    ``retain_handling`` as in ``LoadClient``. → the connected clients."""
+    clients = [await LoadClient.connect(port, cid, session_expiry=session_expiry)
+               for cid in subs]
+    await asyncio.gather(*(c.subscribe(list(subs[c.client_id]),
+                                       retain_handling=retain_handling)
+                           for c in clients))
     return clients

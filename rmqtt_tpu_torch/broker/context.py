@@ -313,21 +313,6 @@ class BrokerConfig:
     fitter: FitterConfig = field(default_factory=FitterConfig)
 
 
-def refuse_unported(cfg: BrokerConfig) -> None:
-    """Raise ``NotImplementedError`` for a configuration that needs a part
-    of the broker not yet ported to ``rmqtt_tpu_torch``, at construction
-    rather than at first use. (Plugins and bridges raise in
-    ``conf.instantiate_plugins``, ``--workers`` in ``server.main``.)"""
-    if cfg.cluster:
-        raise NotImplementedError(
-            f"[cluster] ({cfg.cluster_mode} mode): the cluster layer is not "
-            "ported to rmqtt_tpu_torch yet (ROADMAP Queue A item 15)")
-    if cfg.durability_enable:
-        raise NotImplementedError(
-            "[durability]: the journal needs rmqtt_tpu_torch.storage, which is "
-            "not ported yet (ROADMAP Queue A item 15)")
-
-
 class ServerContext:
     def __init__(
         self,
@@ -340,7 +325,6 @@ class ServerContext:
         from rmqtt_tpu_torch.router.default import DefaultRouter
 
         self.cfg = cfg or BrokerConfig()
-        refuse_unported(self.cfg)
         self.hooks = HookRegistry()
         self.metrics = Metrics()
         from rmqtt_tpu_torch.broker.telemetry import Telemetry
@@ -438,16 +422,46 @@ class ServerContext:
         # happens to be configured
         self._stores: List[Any] = []
         self._store_sweep_task = None
-        # crash-safe durability plane (broker/durability.py): None until
-        # storage/ is ported ([durability] is refused by refuse_unported);
-        # every hot-path guard stays one attribute test
+        # crash-safe durability plane (broker/durability.py): None when
+        # disabled — every hot-path guard is one attribute test, the
+        # pinned zero-behavior-change contract
         self.durability = None
+        if self.cfg.durability_enable:
+            if self.cfg.fabric_enable:
+                # one journal file cannot serve several worker processes:
+                # concurrent recovery would duplicate every persistent
+                # session per worker and concurrent appends share one seq
+                # space (upserts silently overwrite each other's records)
+                raise ValueError(
+                    "[durability] cannot combine with [fabric] workers: "
+                    "each process would recover and journal into the same "
+                    "store (run durability on a single-process broker)")
+            from rmqtt_tpu_torch.broker.durability import DurabilityService
+
+            self.durability = DurabilityService(self, self.cfg)
+            # retained set/clear journals through the same on_set chain the
+            # retainer plugin and cluster broadcast ride (chained, so all
+            # three coexist); durability registers FIRST so later links
+            # (cluster push) see an already-journaled mutation
+            _prev_on_set = self.retain.on_set
+            _dur = self.durability
+
+            def _durable_on_set(topic, msg, _prev=_prev_on_set, _d=_dur):
+                _d.on_retain(topic, msg)
+                if _prev is not None:
+                    _prev(topic, msg)
+
+            self.retain.on_set = _durable_on_set
         # intra-node routing fabric (broker/fabric.py): one router owner per
         # node, workers submit publishes over a UDS mesh. Mutually exclusive
         # with the cluster registries — the fabric IS this node's internal
         # cluster; federating fabric nodes is ROADMAP item 3 territory.
         self.fabric = None
         if self.cfg.fabric_enable:
+            if self.cfg.cluster:
+                raise ValueError(
+                    "[fabric] and [cluster] cannot combine in one process: "
+                    "the fabric replaces the intra-node cluster peering")
             if not self.cfg.fabric_dir:
                 raise ValueError("[fabric] enable=true requires fabric.dir")
             from rmqtt_tpu_torch.broker.fabric import (
@@ -458,6 +472,14 @@ class ServerContext:
             self.fabric = FabricService(self, self.cfg)
             self.routing.fabric = self.fabric
             self.registry = FabricSessionRegistry(self)
+        elif self.cfg.cluster and self.cfg.cluster_mode == "raft":
+            from rmqtt_tpu_torch.cluster.raft_mode import RaftSessionRegistry
+
+            self.registry = RaftSessionRegistry(self)
+        elif self.cfg.cluster:
+            from rmqtt_tpu_torch.cluster.broadcast import ClusterSessionRegistry
+
+            self.registry = ClusterSessionRegistry(self)
         else:
             self.registry = SessionRegistry(self)
         self.delayed = DelayedSender(self.registry.forwards, max_pending=self.cfg.delayed_publish_max)

@@ -8,16 +8,14 @@ session-takeover kick, fitter negotiation, CONNACK with v5 properties, then
 hand-off to the session run loop.
 
 Run standalone:  python -m rmqtt_tpu_torch.broker --port 1883 [--router xla]
-
-``--router xla`` routes on the GPU through ``TorchRouter`` (it needs a
-CUDA device). The cluster layer and ``--workers`` are not ported yet and
-refuse the start (ROADMAP Queue A item 15).
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
+import os
+import sys
 import time
 import uuid
 from typing import Optional
@@ -594,6 +592,26 @@ async def _amain(args) -> None:
     conf.setup_logging(settings.log, verbose=getattr(args, "verbose", False))
     broker = MqttBroker(ServerContext(settings.broker))
     conf.instantiate_plugins(broker.ctx, settings)
+    cluster = None
+    if settings.cluster_listen:
+        if settings.broker.cluster_mode == "raft":
+            from rmqtt_tpu_torch.cluster.raft_mode import RaftCluster
+
+            cluster = RaftCluster(
+                broker.ctx, settings.cluster_listen, settings.peers,
+                raft_db=settings.raft_db,
+                retain_sync_mode=settings.retain_sync_mode,
+                **settings.cluster_tuning,
+            )
+        else:
+            from rmqtt_tpu_torch.cluster.broadcast import BroadcastCluster
+
+            cluster = BroadcastCluster(
+                broker.ctx, settings.cluster_listen, settings.peers,
+                retain_sync_mode=settings.retain_sync_mode,
+                **settings.cluster_tuning,
+            )
+        await cluster.start()
     api = None
     if settings.http_api and not getattr(args, "no_http_api", False):
         # under --workers only worker 1 serves the admin API (one port)
@@ -603,15 +621,193 @@ async def _amain(args) -> None:
     await broker.start()
     if api is not None:
         await api.start()
+    if cluster is not None:
+        await cluster.start_sync()
+        log.info(
+            "cluster node %s listening on %s", settings.broker.node_id,
+            settings.cluster_listen,
+        )
     async with broker._server:
         await broker._server.serve_forever()
+
+
+def _worker_passthrough(argv: list) -> list:
+    """CLI args forwarded verbatim to each worker process (the supervisor
+    re-adds the per-worker role flags itself)."""
+    passthrough = []
+    skip = 0
+    supervisor_flags = ("--workers", "--cluster-port-base", "--fabric-dir",
+                        "--fabric-worker-id", "--fabric-workers")
+    for a in argv:
+        if skip:
+            skip -= 1
+            continue
+        if a in supervisor_flags:
+            skip = 1
+            continue
+        if a == "--fabric" or any(a.startswith(f + "=")
+                                  for f in supervisor_flags):
+            continue
+        passthrough.append(a)
+    return passthrough
+
+
+def _worker_cmds(args, argv: list, fabric_dir=None) -> list:
+    """The N worker command lines for ``--workers N``.
+
+    Without a fabric dir this is EXACTLY the historical shape — worker i
+    gets node id i+1 and peers over a localhost broadcast cluster on RPC
+    port base+i (the zero-behavior-change pin, tests/test_fabric.py). With
+    one, workers carry fabric role flags instead: same node ids, no
+    cluster peering — cross-worker routing rides the UDS mesh."""
+    n = args.workers
+    passthrough = _worker_passthrough(argv)
+    cmds = []
+    if fabric_dir is None:
+        if args.cluster_port_base:
+            base = args.cluster_port_base
+        else:
+            # the client port may come from the config file, not the CLI —
+            # resolve the effective port before deriving RPC ports off it
+            from rmqtt_tpu_torch import conf
+
+            cli = ({"listener": {"port": args.port}}
+                   if args.port is not None else {})
+            base = conf.load(args.config, cli=cli).broker.port + 1000
+        for i in range(n):
+            cmd = [sys.executable, "-m", "rmqtt_tpu_torch.broker", *passthrough,
+                   "--reuse-port", "--node-id", str(i + 1),
+                   "--cluster-listen", f"127.0.0.1:{base + i}",
+                   "--cluster-mode", "broadcast"]
+            for j in range(n):
+                if j != i:
+                    cmd += ["--peer", f"{j + 1}@127.0.0.1:{base + j}"]
+            if i > 0:
+                cmd.append("--no-http-api")
+            cmds.append(cmd)
+        return cmds
+    for i in range(n):
+        cmd = [sys.executable, "-m", "rmqtt_tpu_torch.broker", *passthrough,
+               "--reuse-port", "--node-id", str(i + 1),
+               "--fabric", "--fabric-dir", fabric_dir,
+               "--fabric-worker-id", str(i + 1),
+               "--fabric-workers", str(n)]
+        if i > 0:
+            cmd.append("--no-http-api")
+        cmds.append(cmd)
+    return cmds
+
+
+def _supervise_workers(args, argv: list) -> None:
+    """--workers N: spawn N broker processes sharing the client port via
+    SO_REUSEPORT (kernel load-balances accepts — the multi-core analogue of
+    the reference's multi-thread tokio accept loop, server.rs:229). Without
+    [fabric] they peer as a localhost broadcast cluster for cross-worker
+    delivery — exactly the historical behavior; with it they wire into the
+    intra-node routing fabric (broker/fabric.py: worker 1 owns the device
+    table, the rest submit over UDS). Worker i gets node id i+1; only
+    worker 1 serves the admin API. The supervisor forwards SIGTERM/SIGINT.
+
+    Death policy: in broadcast mode any unrequested worker death stops the
+    group (restart policy is external, e.g. systemd). In fabric mode the
+    supervisor RESPAWNS the dead worker — owner included: survivors detect
+    the dead owner on the UDS link, park submits, and re-register their
+    session/subscription state with the respawn, so sessions on the other
+    workers survive an owner crash. A crash loop (>5 deaths of one worker
+    inside 30s) still stops the group."""
+    import signal
+    import subprocess
+
+    if args.cluster_mode or args.cluster_listen or args.node_id or args.peer:
+        sys.exit("--workers manages node ids and the cluster itself; it "
+                 "cannot combine with --cluster-mode/--cluster-listen/"
+                 "--node-id/--peer")
+    if args.config:
+        from rmqtt_tpu_torch import conf
+
+        if conf.load(args.config).broker.durability_enable:
+            # every worker would recover + journal into ONE store file:
+            # duplicated sessions per process and colliding journal seqs
+            # (upserts overwrite each other). Same class of guard as
+            # fabric+cluster — fail at launch, not at the first kill -9.
+            sys.exit("[durability] cannot combine with --workers: each "
+                     "worker process would recover and journal into the "
+                     "same store (run the durability plane single-process)")
+    fabric_dir = None
+    fabric_tmp = None
+    fabric_on = args.fabric or args.fabric_dir
+    if not fabric_on and args.config:
+        from rmqtt_tpu_torch import conf
+
+        fabric_on = conf.load(args.config).broker.fabric_enable
+    if fabric_on:
+        if args.fabric_dir:
+            fabric_dir = args.fabric_dir
+            os.makedirs(fabric_dir, exist_ok=True)
+        else:
+            import tempfile
+
+            fabric_dir = fabric_tmp = tempfile.mkdtemp(prefix="rmqtt-fabric-")
+    cmds = _worker_cmds(args, argv, fabric_dir=fabric_dir)
+    procs = {i: subprocess.Popen(cmd) for i, cmd in enumerate(cmds)}
+    deaths: dict = {i: [] for i in procs}  # slot → recent death times
+    stopping = False
+
+    def stop(_sig, _frm):
+        nonlocal stopping
+        stopping = True
+        for p in procs.values():
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+
+    signal.signal(signal.SIGTERM, stop)
+    signal.signal(signal.SIGINT, stop)
+    rc = 0
+    try:
+        while True:
+            alive = 0
+            for i, p in list(procs.items()):
+                r = p.poll()
+                if r is None:
+                    alive += 1
+                    continue
+                if stopping:
+                    continue
+                if fabric_dir is not None:
+                    now = time.monotonic()
+                    deaths[i] = [t for t in deaths[i] if now - t < 30.0] + [now]
+                    if len(deaths[i]) <= 5:
+                        log.warning("worker %d died (rc=%s); respawning",
+                                    i + 1, r)
+                        procs[i] = subprocess.Popen(cmds[i])
+                        alive += 1
+                        continue
+                    log.error("worker %d crash-looping; stopping the group",
+                              i + 1)
+                # broadcast mode (or a crash loop): an unrequested worker
+                # death degrades the whole listener group — stop the rest
+                rc = rc or (r if r > 0 else 1)
+                stopping = True
+                for q in procs.values():
+                    if q.poll() is None:
+                        q.send_signal(signal.SIGTERM)
+            if stopping and alive == 0:
+                break
+            time.sleep(0.3)
+    finally:
+        for p in procs.values():
+            p.wait()
+        if fabric_tmp is not None:
+            import shutil
+
+            shutil.rmtree(fabric_tmp, ignore_errors=True)
+    sys.exit(rc)
 
 
 def parse_args(argv=None):
     import argparse
 
-    ap = argparse.ArgumentParser(
-        description="rmqtt_tpu_torch broker (the PyTorch/CUDA port)")
+    ap = argparse.ArgumentParser(description="rmqtt_tpu_torch broker")
     ap.add_argument("--config", default=None, help="TOML settings file (rmqtt.toml)")
     ap.add_argument("--host", default=None)
     ap.add_argument("--port", type=int, default=None)
@@ -629,6 +825,8 @@ def parse_args(argv=None):
     )
     ap.add_argument("--reuse-port", action="store_true",
                     help="set SO_REUSEPORT on the client listeners")
+    ap.add_argument("--cluster-port-base", type=int, default=None,
+                    help="first cluster RPC port for --workers (default port+1000)")
     ap.add_argument("--fabric", action="store_true",
                     help="intra-node routing fabric: with --workers, wire "
                          "the workers to one router owner over a UDS mesh "
@@ -650,9 +848,8 @@ def main(argv=None) -> None:
     args = parse_args(argv)
     logging.basicConfig(level=logging.DEBUG if args.verbose else logging.INFO)
     if args.workers and args.workers > 1:
-        raise NotImplementedError(
-            "--workers: worker processes peer over the cluster layer, which "
-            "is not ported to rmqtt_tpu_torch yet (ROADMAP Queue A item 15)")
+        _supervise_workers(args, sys.argv[1:] if argv is None else list(argv))
+        return
     asyncio.run(_amain(args))
 
 

@@ -601,4 +601,4 @@ def instantiate_plugins(ctx, settings: Settings) -> None:
             raise ValueError(f"unknown plugin {name!r}")
         raise NotImplementedError(
             f"plugin {name!r} ({spec.partition(':')[0]}) is not ported to "
-            "rmqtt_tpu_torch yet (ROADMAP Queue A item 15)")
+            "rmqtt_tpu_torch yet (ROADMAP Queue A item 15, part 2)")

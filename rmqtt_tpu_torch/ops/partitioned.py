@@ -86,11 +86,14 @@ def _pj(kernel: str, fn, *args, _key: Optional[Tuple] = None, **kwargs):
 
 def _refuse_unported_knobs() -> None:
     """The JAX matcher's knobs that select modes the port does not run
-    raise here instead of being ignored. Even with none of them set one
-    difference stays: the JAX matcher splits a device table larger than
-    ``RMQTT_SEG_BYTES`` (default 256 MB) into segments, and the port never
-    segments; cfg3's packed table is under that size, cfg5's 10M-filter
-    table is not (ROADMAP Queue A item 9)."""
+    raise here instead of being ignored. With none of them set the two
+    agree: the JAX matcher splits only a table past ``RMQTT_SEG_BYTES``
+    (default 256 MiB) into segments, and at the default it never gets
+    there. cfg3's 1M filters take 7,814 chunks padded to 8,192 (packed
+    tiles 1,024 B a chunk, legacy int16 tiles 2,816 B); cfg5's 10M filters,
+    about ten times the chunks padded to a multiple of 4,096, are 80-160
+    MiB packed (8-16 byte planes a row) and ~220 MiB legacy (ROADMAP Queue
+    A item 9)."""
     env = os.environ
     compact = env.get("RMQTT_COMPACT", "global")
     if compact != "global":

@@ -4,7 +4,7 @@ changes listed with their reasons); it serves MQTT over TCP with every
 routed batch on ``TorchRouter(device="cpu")`` and delivers exactly what the
 JAX package's broker on its trie router delivers; with ``[retain] tpu``
 its retained replay runs on the scanner and equals the JAX broker's; a
-configuration that needs a part not yet ported refuses the start;
+plugin or bridge (not yet ported) refuses the start;
 ``--router xla`` and ``[retain] tpu`` need a CUDA device."""
 
 import asyncio
@@ -63,11 +63,17 @@ DELIBERATE = {
                           "the module (the boundary test does) starts nothing",
     "broker/context.py": "router 'xla' runs the CUDA probe (utils/cudaprobe.py: "
                          "a subprocess count that refuses the start, never a "
-                         "CPU fallback) and builds TorchRouter; "
-                         "[cluster] and [durability] raise NotImplementedError "
-                         "at construction (refuse_unported); retain_device= "
+                         "CPU fallback) and builds TorchRouter; retain_device= "
                          "goes to RetainStore; stats() adds the retained-scan "
                          "gauges",
+    "cluster/transport.py": "PeerClient serializes its connects (a lock, as "
+                            "the fabric's _Link has): concurrent first "
+                            "callers opened two connections, the dropped "
+                            "writer closed, and its read loop tore down the "
+                            "live one with the pending calls on it; and a "
+                            "call counts a failed send once on the breaker "
+                            "(it counted twice, opening it after half its "
+                            "threshold)",
     "broker/hostprof.py": "its lock is reentrant: the gc callback runs on "
                           "whichever thread collects, also one that holds "
                           "the lock (a plain Lock deadlocks the broker)",
@@ -86,8 +92,7 @@ DELIBERATE = {
                          "over to the host trie",
     "broker/failover.py": "a kernel fault in the half-open probe routes on "
                           "the card again instead of keeping the host plane",
-    "broker/server.py": "no cluster start, --workers raises, parse_args(argv) "
-                        "split out of main(argv)",
+    "broker/server.py": "parse_args(argv) split out of main(argv)",
     "conf.py": "instantiate_plugins raises NotImplementedError for every "
                "plugin (plugins/ and bridge/ are not ported)",
     "runtime/__init__.py": "the port's own binding: builds with g++ into "
@@ -100,7 +105,11 @@ DELIBERATE = {
 _COPIED = ([p.relative_to(JAX_PKG).as_posix()
             for p in sorted((JAX_PKG / "broker").rglob("*.py"))]
            + ["conf.py", "plugins/__init__.py", "cluster/__init__.py",
-              "cluster/wire.py", "cluster/messages.py", "utils/__init__.py",
+              "cluster/wire.py", "cluster/messages.py",
+              "cluster/transport.py", "cluster/membership.py",
+              "cluster/broadcast.py", "cluster/raft.py", "cluster/raft_mode.py",
+              "storage/__init__.py", "storage/sqlite.py", "storage/redis.py",
+              "utils/__init__.py",
               "utils/failpoints.py", "utils/counter.py", "utils/sysmon.py",
               "ops/hybrid.py", "router/default.py", "router/native.py",
               "router/cache.py", "core/topic.py"])
@@ -289,8 +298,6 @@ _UNPORTED = {
     "plugin": ('[plugins]\ndefault_startups = ["rmqtt-counter"]\n', "rmqtt-counter"),
     "bridge": ('[plugins]\ndefault_startups = ["rmqtt-bridge-egress-kafka"]\n',
                "bridge_kafka"),
-    "cluster": ('[cluster]\nlisten = "127.0.0.1:0"\n', r"\[cluster\]"),
-    "durability": ("[durability]\nenable = true\n", r"\[durability\]"),
 }
 
 
@@ -306,11 +313,6 @@ def test_unported_section_refuses_the_start(section, tmp_path):
 
     with pytest.raises(NotImplementedError, match=match):
         asyncio.run(start())
-
-
-def test_workers_refuse_the_start():
-    with pytest.raises(NotImplementedError, match="--workers"):
-        tserver.main(["--workers", "2", "--port", "0"])
 
 
 def test_router_xla_needs_cuda(monkeypatch):

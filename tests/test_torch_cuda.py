@@ -1,7 +1,8 @@
 """The CUDA kernels on a card: each against its plain twin, the router on
 the card against the same router on the CPU, the port's broker with
 every batch on the card against the ``DefaultRouter`` oracle, and its
-retained replay through the retained-scan kernels against ``RetainTree``.
+retained replay through the retained-scan kernels against ``RetainTree``,
+and ``--workers 2 --router xla``: two broker processes on one card.
 
 This file imports nothing of JAX, so it also runs where JAX is not
 installed: ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
@@ -424,3 +425,107 @@ def test_fetch_guard_on_cuda(cuda):
     finally:
         devfetch.set_fetch_timeout(None)
         devfetch._loaded = False
+
+
+def _free_ports(n: int) -> int:
+    """The first of ``n`` consecutive free ports (``--workers`` gives
+    worker i the cluster port base + i)."""
+    import socket
+
+    for _ in range(100):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            base = s.getsockname()[1]
+        try:
+            for k in range(1, n):
+                with socket.socket() as s:
+                    s.bind(("127.0.0.1", base + k))
+            return base
+        except OSError:
+            continue
+    raise RuntimeError("no run of free ports")
+
+
+@pytest.mark.cuda
+def test_workers_on_cuda_deliver_across(cuda, tmp_path):
+    """``python -m rmqtt_tpu_torch.broker --workers 2 --router xla`` without
+    ``[fabric]``: two broadcast-cluster workers share one port, each with its
+    own ``TorchRouter`` on the card. 3,000 filters over 8 subscribers (on
+    both workers), 600 QoS 0 publishes from 4 publishers: the deliveries
+    equal the oracle, and each worker's words kernel launched, since every
+    publish is matched on each worker's own table."""
+    import json
+    import os
+    import subprocess
+    import sys
+    import urllib.request
+
+    rng = random.Random(4)
+    filters = gen_mixed(rng, 3000)
+    subs = {f"s{k}": filters[k::8] for k in range(8)}
+    topics = gen_topics_uniform(rng, 600)
+    payloads = [b"w%d" % i for i in range(len(topics))]
+    want = expected_deliveries(oracle_router(subs), topics, payloads)
+    port, http_port, cluster_base = _free_ports(1), _free_ports(1), _free_ports(2)
+    cfg = tmp_path / "rmqtt.toml"
+    cfg.write_text(f'[listener]\nhost = "127.0.0.1"\n[http_api]\nhost = "127.0.0.1"\n'
+                   f"port = {http_port}\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, RMQTT_HYBRID_MAX="0", PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    log = open(tmp_path / "workers.log", "wb")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "rmqtt_tpu_torch.broker", "--router", "xla",
+         "--port", str(port), "--config", str(cfg), "--workers", "2",
+         "--cluster-port-base", str(cluster_base)],
+        env=env, stdout=log, stderr=subprocess.STDOUT, cwd=root)
+
+    def stats():
+        """{node id: gauges}, worker 1's own and its peer's."""
+        url = f"http://127.0.0.1:{http_port}/api/v1/stats"
+        with urllib.request.urlopen(url, timeout=30) as r:
+            return {row["node"]: row["stats"] for row in json.loads(r.read())}
+
+    async def run():
+        loop = asyncio.get_running_loop()
+        deadline = loop.time() + 300.0
+        while True:
+            assert proc.poll() is None, (tmp_path / "workers.log").read_text()
+            try:
+                if len(await loop.run_in_executor(None, stats)) == 2:
+                    break
+            except OSError:
+                pass
+            assert loop.time() < deadline, "the workers never peered"
+            await asyncio.sleep(0.2)
+        clients = {cid: await LoadClient.connect(port, cid) for cid in subs}
+        # subscribers on both workers: reconnect one until the kernel's
+        # placement gives each worker some
+        while min(s["connections"] for s in (await loop.run_in_executor(
+                None, stats)).values()) == 0:
+            assert loop.time() < deadline, "every subscriber on one worker"
+            cid = rng.choice(list(clients))
+            await clients[cid].close()
+            clients[cid] = await LoadClient.connect(port, cid)
+        await asyncio.gather(*(c.subscribe(list(subs[cid])) for cid, c in clients.items()))
+        pubs = [await LoadClient.connect(port, f"p{k}") for k in range(4)]
+        s0 = await loop.run_in_executor(None, stats)
+        got, _secs = await publish_wave(pubs, list(clients.values()), topics, payloads,
+                                        want, timeout=120.0)
+        s1 = await loop.run_in_executor(None, stats)
+        for c in [*clients.values(), *pubs]:
+            await c.close()
+        return got, {n: s1[n]["routing_kernel_launches_packed"]
+                     - s0[n]["routing_kernel_launches_packed"] for n in s1}
+
+    try:
+        got, launched = asyncio.run(asyncio.wait_for(run(), timeout=420.0))
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+        log.close()
+    assert got == want and sum(want.values()) > 600
+    assert sorted(launched) == [1, 2] and all(n > 0 for n in launched.values())
