@@ -105,7 +105,31 @@ Phases, each of which fails the run (nonzero exit, no result line):
    retained kernels; it prints the recovery, the restart to listening and
    the first publish after the restart (the full upload). 6f runs while
    6e's workers take their subscriptions (its times are taken beside that
-   load); 6e's wave runs alone;
+   load); 6e's wave runs alone. 6g: the plugin broker, ``--router xla``
+   (``RMQTT_HYBRID_MAX=0``, ``[retain] tpu = true``, messages live an
+   hour) with the counter, retainer (sqlite), sys-topic, ACL, auth-http,
+   web-hook, topic-rewrite, auto-subscription and shared-subscription
+   plugins and the MQTT ingress and egress bridges to a ``--router trie``
+   broker of the port; auth-http and the web hook (connect, subscribe and
+   disconnect events) post to an HTTP server in this process. Beside 6a's
+   subscribes it stores 6d's 60,000 retained messages, then takes the 1M
+   filters on 64 MQTT 5 sessions (no retained replay) with sys-topic and
+   the web hook unloaded over the plugin API (each acts once a filter:
+   a ``$SYS`` publish routed on the card, an HTTP post), and loads them
+   again. After 6a-c (their brokers stopped): a shared group of 4, an
+   auto-subscribed inbox, a rewritten namespace, an ACL-denied publisher
+   and filter (SUBACK 0x80), a refused user, 256 messages in through the
+   ingress bridge and 256 out through the egress bridge, all equal to the
+   oracle (``DefaultRouter`` for the 64 subscribers, ``match_filter`` for
+   the plugin clients, one delivery per shared group); ``$SYS`` device/hbm
+   with the allocator's census; then the first ``RECOVERY_WAVE`` topics of
+   6a's wave, exact; every batch on the card; the counter plugin's counts
+   and the web hook's events equal to the client side; the retainer
+   persisted the 60,000 (and sys-topic's version). SIGTERM, then start B
+   on the same configuration: the retainer loads the store into the
+   card's retained table before the listeners open, and 16 subscribers of
+   6d's mix (one broad) replay exactly against ``RetainTree`` on both
+   retained kernels;
 7. one pipelined packed-tile pass under ``torch.profiler``: the device's
    busy share and its time by kernel;
 8. the kernel summary line (launches on each main path, equality with the
@@ -113,8 +137,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
 
 Cut to fit the 1,200 s a run may take (PERF.md §4): 6a's and 6e's wave
 to 4,096 of the cfg3 topics (``--wave``; 8,192 before this slice), 6f's
-wave after the restart to 2,048 (``RECOVERY_WAVE``). The 1M filters and
-the 60,000 retained messages are not cut.
+wave after the restart to 2,048 (``RECOVERY_WAVE``), 6g's wave to the
+same. The 1M filters and the 60,000 retained messages are not cut.
 
 The tables and the oracles are built before the phases that use them, and
 the garbage collector is then frozen, as ``bench.py`` does for the same
@@ -159,6 +183,7 @@ from rmqtt_tpu_torch.bench.timing import (HBM_BYTES_PER_S, INT_OPS_PER_S, SCALAR
                                           time_cuda, time_graph)
 from rmqtt_tpu_torch.bench.workloads import (gen_mixed, gen_retained_topics,
                                              gen_topics_uniform, retained_sub_filters)
+from rmqtt_tpu_torch.core.topic import match_filter, parse_shared
 from rmqtt_tpu_torch.core.trie import RetainTree, TopicTree
 from rmqtt_tpu_torch.ops import match_words as MW
 from rmqtt_tpu_torch.ops import retained_part as RP
@@ -943,13 +968,14 @@ def _signal(pid: int, sig) -> None:
 
 
 class BrokerProcess:
-    """``python -m rmqtt_tpu_torch.broker --router xla`` as a child process
-    with ``[http_api]`` on a port of its own (with ``--workers``, worker 1's),
-    plus ``args``; its output, and its workers', goes to a log file in
-    ``workdir``. ``stop`` ends it and every worker (``main``'s ``finally``)."""
+    """``python -m rmqtt_tpu_torch.broker --router xla`` (or ``router``) as a
+    child process with ``[http_api]`` on a port of its own (with
+    ``--workers``, worker 1's), plus ``args``; its output, and its workers',
+    goes to a log file in ``workdir``. ``stop`` ends it and every worker
+    (``main``'s ``finally``)."""
 
     def __init__(self, name: str, workdir: Path, env: dict, toml: str = "",
-                 args=()) -> None:
+                 args=(), router: str = "") -> None:
         self.name = name
         self.port, self.http_port = _free_port(), _free_port()
         cfg = workdir / f"{name}.toml"
@@ -967,7 +993,8 @@ class BrokerProcess:
                         p for p in (str(ROOT), os.environ.get("PYTHONPATH")) if p)}
         self.started = time.perf_counter()
         self.proc = subprocess.Popen(
-            [*BROKER_CMD, "--router", BROKER_ROUTER, "--port", str(self.port), "--config",
+            [*BROKER_CMD, "--router", router or BROKER_ROUTER, "--port", str(self.port),
+             "--config",
              str(cfg), *args],
             stdout=self._log, stderr=subprocess.STDOUT, env=full_env, cwd=ROOT)
         self._workers: list = []
@@ -1182,24 +1209,30 @@ async def _lone_publishes(port: int, n: int, tag: str) -> tuple:
     return float(np.percentile(rtt, 50)), float(np.percentile(rtt, 99))
 
 
-async def _broker_drive(dev_broker, hybrid_broker, subs, waves) -> dict:
-    """6a, 6b and 6c against the two running brokers → the numbers."""
+async def _broker_drive(dev_broker, hybrid_broker, subs, waves, plugin) -> dict:
+    """6a, 6b and 6c against the two running brokers, with 6g's
+    ``plugin.prepare`` beside their subscribes; then those two brokers
+    stop and ``plugin.run`` runs alone → the numbers (6g's under
+    ``"plugin"``)."""
     out: dict = {}
     n_filters = sum(len(f) for f in subs.values())
-    # both brokers at once (each a process of its own), to fit the run's
-    # time since 6e and 6f: each time runs from its first CONNECT to its
-    # last SUBACK
+    # the three brokers at once (each a process of its own), to fit the
+    # run's time since 6e and 6f: each time runs from its first CONNECT to
+    # its last SUBACK
     async def subscribe(port: int) -> tuple:
         t0 = time.perf_counter()
         clients = await connect_and_subscribe(port, subs)
         return clients, time.perf_counter() - t0
 
     (subscribers, out["subscribe_s"]), (hybrid_subscribers,
-                                        out["subscribe_s_hybrid_broker"]) = (
-        await asyncio.gather(subscribe(dev_broker.port), subscribe(hybrid_broker.port)))
+                                        out["subscribe_s_hybrid_broker"]), \
+        plugin_subscribers = await asyncio.gather(subscribe(dev_broker.port),
+                                                  subscribe(hybrid_broker.port),
+                                                  plugin.prepare())
     log(f"    subscribe: {n_filters} filters over {len(subs)} connections in "
         f"{out['subscribe_s']:.3f} s (device broker) and, at the same time, "
-        f"{out['subscribe_s_hybrid_broker']:.3f} s (hybrid broker)")
+        f"{out['subscribe_s_hybrid_broker']:.3f} s (hybrid broker) and 6g's ingest "
+        f"and subscribe")
     loop = asyncio.get_running_loop()
 
     async def stats():
@@ -1209,7 +1242,7 @@ async def _broker_drive(dev_broker, hybrid_broker, subs, waves) -> dict:
             for k in range(BROKER_PUBLISHERS)]
 
     # 6a: the cfg3 topics through the broker, every batch on the device
-    (topics, payloads, want), wave_fail, wave_next = waves
+    (topics, payloads, want), wave_fail, wave_next = waves[:3]
     p0 = await loop.run_in_executor(None, dev_broker.device)
     s0 = await stats()
     got, secs = await publish_wave(pubs, subscribers, topics, payloads, want,
@@ -1288,13 +1321,21 @@ async def _broker_drive(dev_broker, hybrid_broker, subs, waves) -> dict:
         f"{out['lone_ms_hybrid'][1]:.3f} ms with the default hybrid (host trie)")
     for c in [*subscribers, *hybrid_subscribers, *pubs]:
         await c.close()
+    # 6g's traffic and wave run alone: 6a's brokers stop first
+    for b in (dev_broker, hybrid_broker):
+        await loop.run_in_executor(None, b.stop)
+    t0 = time.perf_counter()
+    out["plugin"] = await plugin.run(plugin_subscribers)
+    PHASE_S["6g after 6a-c"] = time.perf_counter() - t0
     return out
 
 
 def broker_waves(filters, topics, seed: int, wave: int) -> tuple:
     """The brokers' subscriptions (the filters dealt over 64 client ids)
     and waves, each (topics, payloads, expected deliveries): 6a's (the
-    first ``wave`` cfg3 topics, also 6e's and 6f's), 6b's two."""
+    first ``wave`` cfg3 topics, also 6e's, 6f's and 6g's), 6b's two, and
+    6g's plugin traffic (``plugin_traffic``: what the 64 subscribers must
+    receive of the publishes the broker routes, as rewritten)."""
     t0 = time.perf_counter()
     subs = {f"s{k}": filters[k::BROKER_SUBSCRIBERS] for k in range(BROKER_SUBSCRIBERS)}
     oracle = oracle_router(subs)
@@ -1305,6 +1346,9 @@ def broker_waves(filters, topics, seed: int, wave: int) -> tuple:
                        ("next", gen_topics_uniform(rng, FAULT_WAVE))):
         payloads = [b"%s-%d" % (name.encode(), i) for i in range(len(tops))]
         waves.append((tops, payloads, expected_deliveries(oracle, tops, payloads)))
+    routed = [(t.routed, t.payload) for t in plugin_traffic() if t.routed is not None]
+    waves.append(([t for t, _ in routed], [p for _, p in routed],
+                  expected_deliveries(oracle, *zip(*routed))))
     del oracle
     gc.collect()
     gc.freeze()
@@ -1321,17 +1365,21 @@ def wave_prefix(wave, n: int) -> tuple:
             collections.Counter({k: v for k, v in want.items() if k[2] in keep}))
 
 
-def phase_broker(subs, waves) -> dict:
-    """Phase 6a-c → their numbers (``launches_packed``: the words kernel's
-    launches in the broker process over 6a, from its stats before and
-    after the wave of the first ``wave`` topics)."""
-    log("[6] the broker: python -m rmqtt_tpu_torch.broker --router xla")
+def phase_broker(subs, waves, retained_topics, sub_filters) -> dict:
+    """Phase 6a-c and 6g → their numbers (``launches_packed``: the words
+    kernel's launches in the broker process over 6a, from its stats before
+    and after the wave of the first ``wave`` topics; 6g's under
+    ``"plugin"``)."""
+    log("[6] the broker: python -m rmqtt_tpu_torch.broker --router xla, and [6g] "
+        "the plugin broker")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_broker_") as tmp:
         brokers = []
+        plugin = None
         try:
             # every batch on the device; and the default hybrid (64)
             brokers.append(BrokerProcess("device", Path(tmp), {"RMQTT_HYBRID_MAX": "0"}))
             brokers.append(BrokerProcess("hybrid", Path(tmp), {"RMQTT_HYBRID_MAX": "64"}))
+            plugin = PluginPhase(Path(tmp), subs, waves, retained_topics, sub_filters)
             t0 = time.perf_counter()
             for b in brokers:
                 b.wait_ready()
@@ -1339,16 +1387,18 @@ def phase_broker(subs, waves) -> dict:
             log(f"    two brokers listening in {time.perf_counter() - t0:.2f}s "
                 f"(ports {[b.port for b in brokers]}); CUDA probe at start (s): "
                 f"{probe}")
-            out = asyncio.run(_broker_drive(*brokers, subs, waves))
+            out = asyncio.run(_broker_drive(*brokers, subs, waves, plugin))
             out["probe_s"] = probe
         except BaseException:
-            for b in brokers:
+            for b in [*brokers, *(plugin.brokers if plugin else [])]:
                 b.abort_with_stacks()
                 log(f"    --- broker {b.name} log (tail) ---\n{b.tail(120)}")
             raise
         finally:
             for b in brokers:
                 b.stop()
+            if plugin is not None:
+                plugin.stop()
     log(f"    {card_line()}: subscribe {out['subscribe_s']:.3f} s, publish to last "
         f"delivery {out['publish_s']:.3f} s ({out['deliveries_per_s']:.1f} messages/s), "
         f"lone publish p50/p99 {out['lone_ms_device'][0]:.3f}/"
@@ -1385,13 +1435,15 @@ def _retained_delta(before: dict, after: dict) -> dict:
     return {k: after[k] - before[k] for k in keys}
 
 
-async def _retained_ingest(broker, topics, payloads, what: str) -> tuple:
-    """``topics`` published retained at QoS 0 by 8 connections, each waiting
-    for a PINGREQ round trip every ``RETAINED_PACE`` publishes → (seconds
-    until the broker stores them all, the publishers, its stats then)."""
+async def _retained_ingest(broker, topics, payloads, what: str, base: int = 0,
+                           publishers: int = RETAINED_PUBLISHERS) -> tuple:
+    """``topics`` published retained at QoS 0 by ``publishers`` connections,
+    each waiting for a PINGREQ round trip every ``RETAINED_PACE`` publishes
+    → (seconds until the broker stores them all, past the ``base`` it held
+    before, the publishers, its stats then)."""
     loop = asyncio.get_running_loop()
     pubs = [await LoadClient.connect(broker.port, f"rpub{k}")
-            for k in range(RETAINED_PUBLISHERS)]
+            for k in range(publishers)]
     t0 = time.perf_counter()
 
     async def run(k: int, pub: LoadClient) -> None:
@@ -1406,7 +1458,7 @@ async def _retained_ingest(broker, topics, payloads, what: str) -> tuple:
         await pub.ping(RETAINED_INGEST_S)
 
     await asyncio.gather(*(run(k, p) for k, p in enumerate(pubs)))
-    while (s := await loop.run_in_executor(None, broker.stats))["retaineds"] < len(topics):
+    while (s := await loop.run_in_executor(None, broker.stats))["retaineds"] < base + len(topics):
         if time.perf_counter() - t0 > RETAINED_INGEST_S:
             raise AssertionError(f"{what}: {s['retaineds']} of {len(topics)} retained")
         await asyncio.sleep(0.1)
@@ -1427,6 +1479,35 @@ def retained_want(topics, payloads, filters, client_ids) -> collections.Counter:
     return want
 
 
+async def _replays(port: int, client_ids, filters, want, out: dict) -> tuple:
+    """Each client of ``client_ids`` connects and SUBSCRIBEs its filter of
+    ``filters``; the first alone (its lookup builds the device mirror of
+    the whole store on the broker's event loop), then the rest at once;
+    each waits for its share of ``want`` → (received multiset of
+    (client id, topic, payload) after a quiet window, the clients), the
+    times in ``out``."""
+    per_client = collections.Counter()
+    for (cid, _t, _p), n in want.items():
+        per_client[cid] += n
+    subs = [await LoadClient.connect(port, cid) for cid in client_ids]
+    t0 = time.perf_counter()
+    await subs[0].subscribe([filters[0]])
+    out["first_suback_s"] = time.perf_counter() - t0
+    await subs[0].wait_count(per_client[subs[0].client_id], 300.0)
+    out["first_replay_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    await asyncio.gather(*(c.subscribe([f]) for c, f in zip(subs[1:], filters[1:])))
+    await asyncio.gather(*(c.wait_count(per_client[c.client_id], 600.0)
+                           for c in subs[1:]))
+    out["rest_replay_s"] = time.perf_counter() - t0
+    await asyncio.sleep(0.5)  # a quiet window for extras
+    got = collections.Counter()
+    for c in subs:
+        for topic, payload, _t in c.received:
+            got[(c.client_id, topic, payload)] += 1
+    return got, subs
+
+
 async def _retained_drive(broker, topics, payloads, filters, want) -> dict:
     """6d against the running broker → its numbers."""
     out: dict = {}
@@ -1445,28 +1526,8 @@ async def _retained_drive(broker, topics, payloads, filters, want) -> dict:
         f"every {RETAINED_PACE}; the broker's CPU time {out['ingest_cpu_s']:.2f} s")
     _log_split(s_pre, s0, out["publish_s"])
     m0 = await loop.run_in_executor(None, broker.metrics)
-    per_client = collections.Counter()
-    for (cid, _t, _p), n in want.items():
-        per_client[cid] += n
-    subs = [await LoadClient.connect(broker.port, f"rsub{j}")
-            for j in range(len(filters))]
-    # the first SUBSCRIBE alone: its lookup builds the device mirror of the
-    # whole store on the broker's event loop
-    t0 = time.perf_counter()
-    await subs[0].subscribe([filters[0]])
-    out["first_suback_s"] = time.perf_counter() - t0
-    await subs[0].wait_count(per_client[subs[0].client_id], 300.0)
-    out["first_replay_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    await asyncio.gather(*(c.subscribe([f]) for c, f in zip(subs[1:], filters[1:])))
-    await asyncio.gather(*(c.wait_count(per_client[c.client_id], 600.0)
-                           for c in subs[1:]))
-    out["rest_replay_s"] = time.perf_counter() - t0
-    await asyncio.sleep(0.5)  # a quiet window for extras
-    got = collections.Counter()
-    for c in subs:
-        for topic, payload, _t in c.received:
-            got[(c.client_id, topic, payload)] += 1
+    got, subs = await _replays(broker.port, [f"rsub{j}" for j in range(len(filters))],
+                               filters, want, out)
     s1 = await stats()
     m1 = await loop.run_in_executor(None, broker.metrics)
     for c in [*pubs, *subs]:
@@ -1844,6 +1905,535 @@ def phase_fabric_recovery(subs, wave, retained_topics, filters) -> tuple:
     return out_e, out
 
 
+# --------------------------------------------------------------- phase 6g
+PLUGIN_WAVE = RECOVERY_WAVE  # 6g: publishes of 6a's wave after the plugin checks
+PLUGIN_REPLAYS = 16  # 6g start B: subscribers, one filter of 6d's mix each
+#: 6g: connections of its retained ingest. Every batch is on the card
+#: there, one routing batch a few ms whatever it holds, so the batches
+#: must be wide: 8 connections took 92.6 s for the 60,000 on an H100
+#: (PERF.md §5)
+PLUGIN_INGEST_PUBLISHERS = 32
+BRIDGE_MESSAGES = 256  # 6g: in through the ingress bridge, out through the egress
+SHARE_MEMBERS = 4
+SYS_INTERVAL_S = 2.0  # 6g: sys-topic's publish_interval
+DENIED_USER = "blocked"  # 6g: the one user the auth-http endpoint refuses
+#: 6g's plugins in their start order: the counter first, so that the
+#: retainer's load at start lies between two plugins' "started" log lines
+PLUGIN_STARTUPS = ("rmqtt-counter", "rmqtt-retainer", "rmqtt-sys-topic", "rmqtt-acl",
+                   "rmqtt-auth-http", "rmqtt-web-hook", "rmqtt-topic-rewrite",
+                   "rmqtt-auto-subscription", "rmqtt-shared-subscription",
+                   "rmqtt-bridge-ingress-mqtt", "rmqtt-bridge-egress-mqtt")
+#: the plugins that act once for every subscribed filter (sys-topic
+#: publishes a $SYS event, routed on the card; the web hook posts it), held
+#: unloaded over the plugin API while the 1M filters are subscribed
+PER_FILTER_PLUGINS = ("rmqtt-sys-topic", "rmqtt-web-hook")
+HOOK_EVENTS = ("client_connected", "session_subscribed", "client_disconnected")
+SHARE_FILTER = "$share/g6/plug/work/+"
+REWRITE = ("plug/legacy/#", r"^plug/legacy/(.+)$", "plug/v2/$1")  # filter, regex, dest
+ACL_CLIENT = "plug-mallory"
+ACL_DENIED_FILTER = "plug/acl/secret/#"
+AUTO_FILTER = "plug/inbox/%c"
+INGRESS_PREFIX = "plug/from-remote/"
+EGRESS_PREFIX = "card/"
+
+
+def rewritten(topic: str) -> str:
+    """6g's topic-rewrite rule applied to a published topic."""
+    src, rx, dest = REWRITE
+    m = re.match(rx, topic)
+    return dest.replace("$1", m.group(1)) if m and match_filter(src, topic) else topic
+
+
+#: the plugin clients of 6g and the filters each SUBSCRIBEs (the
+#: auto-subscription adds ``AUTO_FILTER`` to every client at CONNECT)
+PLUGIN_SUBS = {
+    **{f"plug-share{k}": [SHARE_FILTER] for k in range(SHARE_MEMBERS)},
+    "plug-auto": [],
+    # the rewrite applies to publishes: the new namespace receives them, the
+    # old one nothing
+    "plug-rewrite": [rewritten("plug/legacy/+/temp"), "plug/legacy/#"],
+    ACL_CLIENT: [ACL_DENIED_FILTER, "plug/acl/open/+"],
+    "plug-bridge": [INGRESS_PREFIX + "#"],
+}
+Traffic = collections.namedtuple("Traffic", "publisher topic routed payload")
+
+
+def plugin_traffic() -> list:
+    """6g's publishes, each (publisher, topic as published, topic the
+    broker routes or None where the ACL drops it, payload): a shared group's
+    namespace, the auto-subscribed inbox of ``plug-auto``, the rewritten
+    namespace, the ACL's namespace from an allowed and the denied
+    publisher, the ingress bridge's messages (published on the remote
+    broker, routed here under ``INGRESS_PREFIX``) and the egress bridge's."""
+    out = []
+    for i in range(64):
+        out.append(Traffic("plug-pub", f"plug/work/{i}", f"plug/work/{i}", b"share-%d" % i))
+    for i in range(8):
+        out.append(Traffic("plug-pub", "plug/inbox/plug-auto", "plug/inbox/plug-auto",
+                           b"auto-%d" % i))
+    for i in range(32):
+        t = f"plug/legacy/d{i}/temp"
+        out.append(Traffic("plug-pub", t, rewritten(t), b"rewrite-%d" % i))
+    for i in range(32):
+        out.append(Traffic("plug-pub", f"plug/acl/open/{i}", f"plug/acl/open/{i}",
+                           b"acl-%d" % i))
+        out.append(Traffic(ACL_CLIENT, f"plug/acl/open/m{i}", None, b"denied-%d" % i))
+    for i in range(BRIDGE_MESSAGES):
+        out.append(Traffic("remote-pub", f"bridge/in/{i}", f"{INGRESS_PREFIX}bridge/in/{i}",
+                           b"ingress-%d" % i))
+        out.append(Traffic("plug-pub", f"plug/to-remote/{i}", f"plug/to-remote/{i}",
+                           b"egress-%d" % i))
+    return out
+
+
+def plugin_client_want(traffic) -> collections.Counter:
+    """What 6g's plugin clients must receive of ``traffic``: each holds its
+    filters, less the one the ACL refuses, plus its auto-subscribed inbox;
+    a shared group takes one delivery of each matching topic, counted under
+    its filter. → multiset of (client id or the group's filter, topic,
+    payload)."""
+    held = {cid: [f for f in fs if f != ACL_DENIED_FILTER]
+            + [AUTO_FILTER.replace("%c", cid)] for cid, fs in PLUGIN_SUBS.items()}
+    want = collections.Counter()
+    for t in traffic:
+        if t.routed is None:
+            continue
+        keys = set()
+        for cid, filters in held.items():
+            for f in filters:
+                group, stripped = parse_shared(f)
+                if match_filter(stripped, t.routed):
+                    keys.add(f if group else cid)
+        for k in keys:
+            want[(k, t.routed, t.payload)] += 1
+    return want
+
+
+class HookServer:
+    """The HTTP endpoint of 6g's auth-http and web-hook plugins, on a thread
+    of this process: ``/auth`` allows every user but ``DENIED_USER``,
+    ``/hook`` records each event as (action, client id)."""
+
+    def __init__(self) -> None:
+        import http.server
+        import threading
+        import urllib.parse
+
+        events, lock = [], threading.Lock()
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):
+                body = self.rfile.read(int(self.headers.get("Content-Length", 0)))
+                if self.path == "/auth":
+                    form = urllib.parse.parse_qs(body.decode())
+                    allowed = form.get("username", [""])[0] != DENIED_USER
+                    code, out = (200, b"allow") if allowed else (403, b"deny")
+                else:
+                    event = json.loads(body)
+                    with lock:
+                        events.append((event["action"], event.get("clientid")))
+                    code, out = 200, b"ok"
+                self.send_response(code)
+                self.send_header("Content-Length", str(len(out)))
+                self.end_headers()
+                self.wfile.write(out)
+
+            def log_message(self, *_args):
+                pass
+
+        self.events, self._lock = events, lock
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.port = self.server.server_address[1]
+        threading.Thread(target=self.server.serve_forever, daemon=True).start()
+
+    def take(self) -> collections.Counter:
+        """The events recorded so far, cleared."""
+        with self._lock:
+            out = collections.Counter(self.events)
+            self.events.clear()
+        return out
+
+    def count(self) -> int:
+        with self._lock:
+            return len(self.events)
+
+    def stop(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+
+
+def plugin_toml(tmp: Path, hook_port: int, remote_port: int) -> str:
+    """6g's broker configuration after BrokerProcess's ``[mqtt]`` line:
+    messages live an hour (the retained ones outlive the restart), the
+    retained store on the card past 50,000, and ``PLUGIN_STARTUPS``."""
+    http = f"http://127.0.0.1:{hook_port}"
+    src, rx, dest = REWRITE
+    acl = ", ".join(
+        f'{{ permission = "deny", action = "{a}", clientid = "{ACL_CLIENT}", '
+        f'topics = ["{t}"] }}' for a, t in (("publish", "plug/acl/#"),
+                                             ("subscribe", ACL_DENIED_FILTER)))
+    startups = ", ".join(f'"{p}"' for p in PLUGIN_STARTUPS)
+    return (
+        "max_message_expiry = 3600.0\n[retain]\ntpu = true\n"
+        f"[plugins]\ndefault_startups = [{startups}]\n"
+        f"[plugins.rmqtt-sys-topic]\npublish_interval = {SYS_INTERVAL_S}\n"
+        f'[plugins.rmqtt-retainer]\npath = "{tmp}/retainer.db"\n'
+        f'[plugins.rmqtt-acl]\nrules = [{acl}, {{ permission = "allow" }}]\n'
+        f'[plugins.rmqtt-auth-http]\nhttp_auth_req = "{http}/auth"\n'
+        f'[plugins.rmqtt-web-hook]\nurls = ["{http}/hook"]\n'
+        f"events = {json.dumps(list(HOOK_EVENTS))}\n"
+        f"[plugins.rmqtt-topic-rewrite]\nrules = [{{ source_topic_filter = \"{src}\", "
+        f"dest_topic = \"{dest}\", regex = '{rx}' }}]\n"
+        f'[plugins.rmqtt-auto-subscription]\nsubscribes = [["{AUTO_FILTER}", 0]]\n'
+        '[plugins.rmqtt-shared-subscription]\nstrategy = "round_robin_per_group"\n'
+        f"[plugins.rmqtt-bridge-ingress-mqtt]\nport = {remote_port}\n"
+        f'local_prefix = "{INGRESS_PREFIX}"\n'
+        'subscribes = [{ filter = "bridge/in/#", qos = 0 }]\n'
+        f"[plugins.rmqtt-bridge-egress-mqtt]\nport = {remote_port}\n"
+        f'remote_prefix = "{EGRESS_PREFIX}"\nforwards = ["plug/to-remote/#"]\n')
+
+
+def _plugin_log_gap_ms(log_text: str, first: str, second: str) -> float:
+    """Milliseconds between the "plugin <first> ... started" and "plugin
+    <second> ... started" lines of a broker's log (their timestamps)."""
+    def at(name):
+        m = re.search(r"^(\S+ \S+) .*plugin %s v\S+ started" % re.escape(name), log_text,
+                      re.M)
+        if m is None:
+            raise AssertionError(f"6g: no start of {name} in the broker's log")
+        day, clock = m.group(1).split(" ")[0], m.group(1).split(" ")[1]
+        hms, ms = clock.split(",")
+        return time.mktime(time.strptime(f"{day} {hms}", "%Y-%m-%d %H:%M:%S")) * 1e3 + int(ms)
+
+    return at(second) - at(first)
+
+
+def _check_plugin_routing(what: str, s0: dict, s1: dict) -> dict:
+    """Every routing batch between the two stats ran on the device and the
+    words kernel launched (counts compared as at least: sys-topic's own
+    publishes are routing batches too)."""
+    d = _device_delta(s0, s1)
+    if not _all_on_device(d, s1) or d["routing_kernel_launches_packed"] <= 0:
+        raise AssertionError(f"{what}: not every batch ran on the device: {d}")
+    return d
+
+
+def _check_sys_hbm(payload: bytes) -> dict:
+    """sys-topic's ``device/hbm``: the occupancy model and the CUDA
+    allocator's census."""
+    hbm = json.loads(payload)
+    if not (hbm.get("modeled_bytes", 0) > 0 and hbm.get("live_arrays_bytes", 0) > 0):
+        raise AssertionError(f"6g: $SYS device/hbm without the census: {hbm}")
+    return {k: hbm.get(k) for k in ("modeled_bytes", "live_arrays_bytes",
+                                    "device_bytes_in_use")}
+
+
+class PluginPhase:
+    """6g, the plugin broker: ``--router xla`` (``RMQTT_HYBRID_MAX=0``)
+    with ``PLUGIN_STARTUPS`` configured, the MQTT bridges pointed at a
+    ``--router trie`` broker of the port, auth-http and the web hook at a
+    ``HookServer``. ``prepare`` (run beside 6a's subscribes): 6d's 60,000
+    retained messages, then 6a's 1M filters on 64 MQTT 5 sessions (no
+    retained replay) with the per-filter plugins unloaded. ``run`` (after
+    6a-c): the plugin clients and traffic, a ``PLUGIN_WAVE`` wave, SIGTERM,
+    then start B on the retainer's store and ``PLUGIN_REPLAYS`` replays."""
+
+    def __init__(self, tmp: Path, subs, waves, retained_topics, sub_filters) -> None:
+        self.tmp, self.subs = tmp, subs
+        self.wave = wave_prefix(waves[0], PLUGIN_WAVE)
+        self.traffic_want = waves[3][2]
+        self.rtopics = retained_topics[:RETAINED_BROKER_TOPICS]
+        self.rpayloads = [b"r%d" % i for i in range(len(self.rtopics))]
+        broad = next(f for f in sub_filters if f.startswith("+"))
+        self.replay_filters = [*sub_filters[:PLUGIN_REPLAYS - 1], broad]
+        self.hooks = HookServer()
+        self.out: dict = {}
+        self.brokers: list = []
+        self.remote = self._start("remote", {}, "", router="trie")
+        self.toml = plugin_toml(tmp, self.hooks.port, self.remote.port)
+        self.broker = self._start("plugins", {"RMQTT_HYBRID_MAX": "0"}, self.toml)
+        self.expected_events: collections.Counter = collections.Counter()
+
+    def _start(self, name, env, toml, router="") -> "BrokerProcess":
+        b = BrokerProcess(name, self.tmp, env, toml, router=router)
+        self.brokers.append(b)
+        return b
+
+    def stop(self) -> None:
+        for b in self.brokers:
+            b.stop()
+        self.hooks.stop()
+
+    async def _api(self, method: str, path: str):
+        return await asyncio.get_running_loop().run_in_executor(
+            None, self.broker._http, method, path)
+
+    async def _stats(self, broker=None) -> dict:
+        return await asyncio.get_running_loop().run_in_executor(
+            None, (broker or self.broker).stats)
+
+    async def _metrics(self) -> dict:
+        return await asyncio.get_running_loop().run_in_executor(None, self.broker.metrics)
+
+    async def _hook_events(self, what: str) -> None:
+        """The web hook posted exactly ``expected_events`` (cleared)."""
+        want, t0 = self.expected_events, time.perf_counter()
+        while self.hooks.count() < sum(want.values()):
+            if time.perf_counter() - t0 > 120:
+                break
+            await asyncio.sleep(0.1)
+        await asyncio.sleep(0.3)  # a quiet window for extras
+        got = self.hooks.take()
+        if got != want:
+            raise AssertionError(f"6g {what}: web-hook events differ from the client "
+                                 f"side: missing {want - got}, extra {got - want}")
+        self.expected_events = collections.Counter()
+
+    async def connect(self, cid: str, **kw) -> LoadClient:
+        c = await LoadClient.connect(self.broker.port, cid, **kw)
+        self.expected_events[("client_connected", cid)] += 1
+        return c
+
+    async def close(self, clients) -> None:
+        for c in clients:
+            await c.close()
+            self.expected_events[("client_disconnected", c.client_id)] += 1
+
+    async def prepare(self) -> list:
+        """Start A up to the plugin checks → the 64 subscribers."""
+        out = self.out
+        b = self.broker
+        loop = asyncio.get_running_loop()
+        await loop.run_in_executor(None, self.remote.wait_ready)
+        await loop.run_in_executor(None, b.wait_ready)
+        out["probe_s"] = b.probe_s()
+        # sys-topic retains its version at its first tick
+        while (base := (await self._stats())["retaineds"]) < 1:
+            await asyncio.sleep(0.1)
+        out["ingest_s"], pubs, _s = await _retained_ingest(
+            b, self.rtopics, self.rpayloads, "6g", base=base,
+            publishers=PLUGIN_INGEST_PUBLISHERS)
+        for c in pubs:
+            self.expected_events[("client_connected", c.client_id)] += 1
+        await self.close(pubs)
+        await self._hook_events("retained ingest")
+        for name in PER_FILTER_PLUGINS:
+            if not (await self._api("PUT", f"/api/v1/plugins/{name}/unload"))["unloaded"]:
+                raise AssertionError(f"6g: {name} did not unload")
+        m0 = await self._metrics()
+        t0 = time.perf_counter()
+        subscribers = await connect_and_subscribe(b.port, self.subs,
+                                                  session_expiry=SESSION_EXPIRY_S,
+                                                  retain_handling=2)
+        out["subscribe_s"] = time.perf_counter() - t0
+        m1 = await self._metrics()
+        n_filters = sum(len(f) for f in self.subs.values())
+        counted = {k: m1.get(f"hook.{k}", 0) - m0.get(f"hook.{k}", 0)
+                   for k in ("client_connected", "session_subscribed")}
+        if counted != {"client_connected": len(self.subs), "session_subscribed": n_filters}:
+            raise AssertionError(f"6g: the counter plugin counted {counted} over the "
+                                 f"subscribe of {n_filters} filters")
+        for name in PER_FILTER_PLUGINS:
+            if not (await self._api("PUT", f"/api/v1/plugins/{name}/load"))["loaded"]:
+                raise AssertionError(f"6g: {name} did not load again")
+        log(f"    6g: {len(self.rtopics)} retained stored in {out['ingest_s']:.3f} s by "
+            f"{PLUGIN_INGEST_PUBLISHERS} connections, "
+            f"then {n_filters} filters on {len(self.subs)} MQTT 5 sessions in "
+            f"{out['subscribe_s']:.3f} s with {', '.join(PER_FILTER_PLUGINS)} unloaded; "
+            f"the counter plugin: {counted}")
+        return subscribers
+
+    async def _plugin_checks(self, subscribers) -> None:
+        """The plugin clients and ``plugin_traffic`` on the card's table."""
+        out, b = self.out, self.broker
+        pubs = {}
+        clients = {}
+        granted = {}
+        for cid, filters in PLUGIN_SUBS.items():
+            clients[cid] = await self.connect(cid)
+            if filters:
+                granted[cid] = await clients[cid].subscribe(filters, check=False)
+                self.expected_events.update(("session_subscribed", cid)
+                                            for rc in granted[cid] if rc < 0x80)
+        want_codes = {cid: [0x80 if f == ACL_DENIED_FILTER else 0 for f in fs]
+                      for cid, fs in PLUGIN_SUBS.items() if fs}
+        if granted != want_codes:
+            raise AssertionError(f"6g: SUBACK codes {granted}, want {want_codes}")
+        try:
+            await LoadClient.connect(b.port, "plug-blocked", username=DENIED_USER)
+            raise AssertionError("6g: auth-http let the denied user connect")
+        except ConnectionError:
+            pass
+        sysc = await self.connect("plug-sys")
+        await sysc.subscribe(["$SYS/brokers/+/device/#"])
+        self.expected_events[("session_subscribed", "plug-sys")] += 1
+        pubs["plug-pub"] = await self.connect("plug-pub")
+        pubs[ACL_CLIENT] = clients[ACL_CLIENT]
+        pubs["remote-pub"] = await LoadClient.connect(self.remote.port, "remote-pub")
+        rsub = await LoadClient.connect(self.remote.port, "remote-sub")
+        await rsub.subscribe([EGRESS_PREFIX + "#"])
+        traffic = plugin_traffic()
+        want = self.traffic_want + plugin_client_want(traffic)
+        group = [f"plug-share{k}" for k in range(SHARE_MEMBERS)]
+        watched = [*subscribers, *(c for cid, c in clients.items())]
+        marks = {c.client_id: len(c.received) for c in watched}
+        per_key = collections.Counter()
+        for (k, _t, _p), n in want.items():
+            per_key[k] += n
+        s0 = await self._stats()
+        t0 = time.perf_counter()
+        for t in traffic:
+            pubs[t.publisher].publish(t.topic, t.payload)
+        for p in pubs.values():
+            await p.ping()
+
+        def key(cid):
+            return SHARE_FILTER if cid in group else cid
+
+        while True:
+            have = collections.Counter()
+            for c in watched:
+                have[key(c.client_id)] += len(c.received) - marks[c.client_id]
+            if all(have[k] >= n for k, n in per_key.items()) and \
+                    len(rsub.received) >= BRIDGE_MESSAGES:
+                break
+            if time.perf_counter() - t0 > 300:
+                raise AssertionError(f"6g: plugin traffic not delivered: "
+                                     f"{ {k: (have[k], n) for k, n in per_key.items() if have[k] < n} }"
+                                     f", egress {len(rsub.received)}")
+            await asyncio.sleep(0.05)
+        out["traffic_s"] = time.perf_counter() - t0
+        await asyncio.sleep(1.0)  # a quiet window for extras
+        got = collections.Counter()
+        for c in watched:
+            for topic, payload, _t in c.received[marks[c.client_id]:]:
+                got[(key(c.client_id), topic, payload)] += 1
+        _check_wave("6g plugin traffic", got, want)
+        remote_want = collections.Counter(
+            (EGRESS_PREFIX + t.topic, t.payload) for t in traffic
+            if t.topic.startswith("plug/to-remote/"))
+        remote_got = collections.Counter((t, p) for t, p, _ in rsub.received)
+        if remote_got != remote_want:
+            raise AssertionError(f"6g: the egress bridge delivered {sum(remote_got.values())}"
+                                 f" of {BRIDGE_MESSAGES} to the remote broker")
+        s1 = await self._stats()
+        out["traffic"] = _check_plugin_routing("6g plugin traffic", s0, s1)
+        # sys-topic's device/hbm: the occupancy model and the allocator's census
+        while not any(t.endswith("/device/hbm") for t, _p, _ in sysc.received):
+            if time.perf_counter() - t0 > 60:
+                raise AssertionError(f"6g: no $SYS device/hbm: {[t for t, *_ in sysc.received]}")
+            await asyncio.sleep(0.1)
+        out["sys_hbm"] = _check_sys_hbm(next(p for t, p, _ in reversed(sysc.received)
+                                             if t.endswith("/device/hbm")))
+        out["sys_leaves"] = sorted({t.rsplit("/", 1)[1] for t, *_ in sysc.received})
+        n_del = sum(got.values())
+        log(f"    6g plugins: {len(traffic)} publishes ({BRIDGE_MESSAGES} in through the "
+            f"ingress bridge) -> {n_del} deliveries equal to the oracle in "
+            f"{out['traffic_s']:.3f} s; {BRIDGE_MESSAGES} out through the egress bridge; "
+            f"SUBACK {granted[ACL_CLIENT]} for {ACL_CLIENT}; {DENIED_USER!r} refused; "
+            f"routing {out['traffic']}; $SYS device leaves {out['sys_leaves']}, "
+            f"hbm {out['sys_hbm']}")
+        await rsub.close()
+        await pubs["remote-pub"].close()
+        self._plugin_clients = [*clients.values(), sysc, pubs["plug-pub"]]
+
+    async def run(self, subscribers) -> dict:
+        """Start A from the plugin checks, the SIGTERM, start B → 6g's
+        numbers."""
+        out, b = self.out, self.broker
+        m0 = await self._metrics()
+        await self._plugin_checks(subscribers)
+        # the wave, every batch on the card
+        wpubs = [await self.connect(f"pub{k}") for k in range(BROKER_PUBLISHERS)]
+        topics, payloads, want = self.wave
+        s0 = await self._stats()
+        got, secs = await publish_wave(wpubs, subscribers, topics, payloads, want,
+                                       timeout=900.0)
+        s1 = await self._stats()
+        _check_wave("6g wave", got, want)
+        d = _check_plugin_routing("6g wave", s0, s1)
+        out.update(wave_s=secs, wave_deliveries=sum(got.values()),
+                   wave_deliveries_per_s=sum(got.values()) / secs,
+                   wave_batches=d["routing_dispatches"],
+                   launches_packed=(d["routing_kernel_launches_packed"]
+                                    + out["traffic"]["routing_kernel_launches_packed"]))
+        log(f"    6g wave: {len(topics)} publishes -> {sum(got.values())} deliveries in "
+            f"{secs:.3f} s ({sum(got.values()) / secs:.1f} messages/s); "
+            f"{d['routing_dispatches']} routing batches (sys-topic's among them), "
+            f"words kernel launches {d['routing_kernel_launches_packed']}")
+        plugin = await self._api("GET", "/api/v1/plugins/rmqtt-retainer")
+        s = await self._stats()
+        out["persisted"] = plugin["attrs"]["persisted"]
+        if not (plugin["active"] and out["persisted"] == s["retaineds"]
+                == len(self.rtopics) + 1):
+            raise AssertionError(f"6g: the retainer persisted {out['persisted']}, the store "
+                                 f"holds {s['retaineds']} (want {len(self.rtopics)} and "
+                                 f"$SYS version)")
+        await self.close([*self._plugin_clients, *wpubs, *subscribers])
+        m1 = await self._metrics()
+        counted = {k: m1.get(f"hook.{k}", 0) - m0.get(f"hook.{k}", 0) for k in HOOK_EVENTS}
+        client_side = {k: sum(n for (a, _c), n in self.expected_events.items() if a == k)
+                       for k in HOOK_EVENTS}
+        if counted != client_side:
+            raise AssertionError(f"6g: the counter plugin counted {counted}, the client "
+                                 f"side {client_side}")
+        await self._hook_events("plugin checks")
+        log(f"    6g: the retainer persisted {out['persisted']} messages; the counter "
+            f"plugin and the web hook agree with the client side: {client_side}")
+        # SIGTERM: the retainer's stop closes its store
+        t0 = time.perf_counter()
+        await asyncio.get_running_loop().run_in_executor(None, b.stop)
+        out["stop_s"] = time.perf_counter() - t0
+        await self._restart()
+        return out
+
+    async def _restart(self) -> None:
+        """Start B: the same configuration on the retainer's store, and
+        ``PLUGIN_REPLAYS`` retained replays on the card's kernels."""
+        out = self.out
+        loop = asyncio.get_running_loop()
+        b = self.broker = self._start("plugins-restart", {"RMQTT_HYBRID_MAX": "0"},
+                                      self.toml)
+        await loop.run_in_executor(None, b.wait_ready)
+        out["restart_to_listening_s"] = time.perf_counter() - b.started
+        out["retainer_load_ms"] = _plugin_log_gap_ms(
+            b.log_path.read_text(errors="replace"), PLUGIN_STARTUPS[0], "rmqtt-retainer")
+        s0 = await self._stats()
+        if s0["retaineds"] != len(self.rtopics) + 1:
+            raise AssertionError(f"6g start B: {s0['retaineds']} retained messages loaded")
+        from rmqtt_tpu_torch import __version__
+        sys_topic = "$SYS/brokers/1/version"  # node id 1, the default
+        cids = [f"replay{j}" for j in range(len(self.replay_filters))]
+        want = retained_want([*self.rtopics, sys_topic],
+                             [*self.rpayloads, __version__.encode()],
+                             self.replay_filters, cids)
+        got, subs = await _replays(b.port, cids, self.replay_filters, want, out)
+        s1 = await self._stats()
+        for c in subs:
+            await c.close()
+        if got != want:
+            missing, extra = want - got, got - want
+            raise AssertionError(
+                f"6g start B: the replay differs from the RetainTree oracle: "
+                f"{sum(missing.values())} missing (e.g. {list(missing)[:3]}), "
+                f"{sum(extra.values())} extra (e.g. {list(extra)[:3]})")
+        out["retained"] = r = _retained_delta(s0, s1)
+        out["mirror_build_ms"] = s1["retained_mirror_build_ms"]
+        _check_retained_scans("6g start B", r, len(self.replay_filters))
+        if not out["mirror_build_ms"] > 0:
+            raise AssertionError("6g start B: no retained mirror was built")
+        out["replayed"] = sum(got.values())
+        log(f"    6g start B (start A stopped in {out['stop_s']:.3f} s after its SIGTERM): "
+            f"listening {out['restart_to_listening_s']:.3f} s after the "
+            f"start (the retainer's load of {s0['retaineds']} rows "
+            f"{out['retainer_load_ms']:.0f} ms, before the listeners); "
+            f"{len(subs)} replays, {out['replayed']} messages equal to the RetainTree "
+            f"oracle: the first {out['first_replay_s']:.3f} s (mirror build "
+            f"{out['mirror_build_ms']:.3f} ms), the rest {out['rest_replay_s']:.3f} s; "
+            f"scans {r}")
+        await loop.run_in_executor(None, b.stop)
+
+
 def phase_profile(router: TorchRouter, topics, batch: int) -> None:
     """One pipelined pass through the packed-tile router under the profiler,
     after every timed pass (the profiler adds host overhead)."""
@@ -1941,9 +2531,10 @@ def main(argv=None) -> int:
     # differences of their own counters (/api/v1/stats) across 6a and 6d
     subs, waves = timed("broker oracle", broker_waves, filters, topics, args.seed,
                         args.wave)
-    broker = timed("6a-c", phase_broker, subs, waves)
+    broker = timed("6a-c+6g", phase_broker, subs, waves, retained_topics, sub_filters)
     if broker["launches_packed"] <= 0:
         raise AssertionError("match_words_packed was never launched in the broker")
+    plugin = broker["plugin"]
     rbroker = timed("6d", phase_retained_broker, retained_topics, sub_filters)
     fabric, recovered = timed("6e+6f", phase_fabric_recovery, subs, waves[0],
                               retained_topics, sub_filters)
@@ -1952,7 +2543,8 @@ def main(argv=None) -> int:
         "match_words_packed": {"router, phase 4": launches["match_words_packed"],
                                "broker, phase 6a": broker["launches_packed"],
                                "fabric owner, phase 6e": fabric["launches_packed"],
-                               "recovered broker, phase 6f": recovered["launches_packed"]},
+                               "recovered broker, phase 6f": recovered["launches_packed"],
+                               "plugin broker, phase 6g": plugin["launches_packed"]},
         "match_words_legacy": {"router with RMQTT_PACKED=0, phase 5":
                                launches["match_words_legacy"]},
     }
@@ -1962,7 +2554,9 @@ def main(argv=None) -> int:
                          "broker, phase 6d":
                          rbroker["delta"][f"retained_scan_launches_{mode}"],
                          "recovered broker, phase 6f":
-                         recovered["retained"][f"retained_scan_launches_{mode}"]}
+                         recovered["retained"][f"retained_scan_launches_{mode}"],
+                         "plugin broker, phase 6g":
+                         plugin["retained"][f"retained_scan_launches_{mode}"]}
     timed("7", phase_profile, packed_router, topics, args.batch)
 
     kernels = []
@@ -1993,8 +2587,12 @@ def main(argv=None) -> int:
         f"with the profiler seams live; 6e deliveries/s {fabric['deliveries_per_s']:.1f} "
         f"through {FABRIC_WORKERS} fabric workers; 6f recovery "
         f"{recovered['recovery_ms']:.3f} ms, restart to listening "
-        f"{recovered['restart_to_listening_s']:.3f} s; CUDA probe s {broker['probe_s']} "
-        f"{rbroker['probe_s']:.3f} {fabric['probe_s']} {recovered['probe_s']:.3f}")
+        f"{recovered['restart_to_listening_s']:.3f} s; 6g plugin broker: subscribe "
+        f"{plugin['subscribe_s']:.3f} s, wave {plugin['wave_deliveries_per_s']:.1f} "
+        f"deliveries/s, restart to listening {plugin['restart_to_listening_s']:.3f} s "
+        f"(retainer load {plugin['retainer_load_ms']:.0f} ms); CUDA probe s "
+        f"{broker['probe_s']} {rbroker['probe_s']:.3f} {fabric['probe_s']} "
+        f"{recovered['probe_s']:.3f} {plugin['probe_s']:.3f}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0

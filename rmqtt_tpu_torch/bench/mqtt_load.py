@@ -43,10 +43,12 @@ class LoadClient:
 
     @classmethod
     async def connect(cls, port: int, client_id: str, host: str = "127.0.0.1",
-                      session_expiry: int = 0) -> "LoadClient":
+                      session_expiry: int = 0,
+                      username: Optional[str] = None) -> "LoadClient":
         """MQTT 3.1.1 with a clean session; with ``session_expiry`` > 0 an
         MQTT 5 connection that resumes or creates a persistent session
-        outliving it by that many seconds (``session_present`` says which)."""
+        outliving it by that many seconds (``session_present`` says which).
+        A refused CONNACK raises ``ConnectionError``."""
         version = pk.V5 if session_expiry else pk.V311
         reader, writer = await asyncio.open_connection(host, port)
         c = cls(client_id, reader, writer, version)
@@ -54,10 +56,13 @@ class LoadClient:
         ack = c._expect(("connack",))
         writer.write(c.codec.encode(pk.Connect(
             client_id=client_id, protocol=version, clean_start=not session_expiry,
-            keepalive=0, properties=({P.SESSION_EXPIRY_INTERVAL: session_expiry}
-                                     if session_expiry else {}))))
+            keepalive=0, username=username,
+            properties=({P.SESSION_EXPIRY_INTERVAL: session_expiry}
+                        if session_expiry else {}))))
         connack = await asyncio.wait_for(ack, 30.0)
         if connack.reason_code != 0:
+            writer.close()
+            c._task.cancel()
             raise ConnectionError(f"{client_id}: CONNACK {connack.reason_code}")
         c.session_present = connack.session_present
         return c
@@ -101,11 +106,13 @@ class LoadClient:
         return self._pid
 
     async def subscribe(self, filters: Sequence[str], qos: int = 0,
-                        retain_handling: int = 0) -> None:
+                        retain_handling: int = 0, check: bool = True) -> List[int]:
         """SUBSCRIBE ``filters`` in packets of ``SUBSCRIBE_CHUNK``, each
-        sent after the previous SUBACK; every filter must be granted.
-        ``retain_handling`` 2 (MQTT 5) asks for no retained replay."""
+        sent after the previous SUBACK → the SUBACKs' reason codes; with
+        ``check`` every filter must be granted. ``retain_handling`` 2
+        (MQTT 5) asks for no retained replay."""
         opts = pk.SubOpts(qos=qos, retain_handling=retain_handling)
+        codes: List[int] = []
         for i in range(0, len(filters), SUBSCRIBE_CHUNK):
             part = filters[i:i + SUBSCRIBE_CHUNK]
             pid = self._next_pid()
@@ -116,8 +123,10 @@ class LoadClient:
             # packet can take minutes while 64 connections subscribe at once
             suback = await asyncio.wait_for(ack, 600.0)
             bad = [f for f, rc in zip(part, suback.reason_codes) if rc >= 0x80]
-            if bad or len(suback.reason_codes) != len(part):
+            if len(suback.reason_codes) != len(part) or (check and bad):
                 raise RuntimeError(f"{self.client_id}: SUBACK refused {bad[:4]}")
+            codes.extend(suback.reason_codes)
+        return codes
 
     def publish(self, topic: str, payload: bytes, retain: bool = False) -> None:
         """Queue one QoS 0 PUBLISH (no ack; ``ping`` waits until the broker

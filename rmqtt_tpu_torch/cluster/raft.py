@@ -499,6 +499,14 @@ class RaftNode:
         return None
 
     def _on_vote(self, body: dict) -> dict:
+        # a vote request proves the candidate is up again: close this node's
+        # breaker to it. A leader's breaker opens while a peer is down, and
+        # each failed probe doubles its cooldown (3 s, 6 s, ...), so a peer
+        # restarted with an empty log would hear no heartbeat, know no
+        # leader and fail every proposal (a CONNECT's hs_lock) until then
+        peer = self.peers.get(body["candidate"])
+        if peer is not None:
+            peer.breaker.ok()
         term = body["term"]
         my_last_term = self._term_at(self._last_index())
         up_to_date = (body["last_log_term"], body["last_log_index"]) >= (

@@ -560,9 +560,7 @@ def load(path: Optional[str] = None, cli: Optional[Dict[str, Any]] = None,
     )
 
 
-# registry of loadable plugins: name → import path of the Plugin class.
-# The modules are the JAX package's plugins, none of them ported yet, so
-# naming one refuses the start (instantiate_plugins).
+# registry of loadable plugins: name → import path of the Plugin class
 PLUGIN_REGISTRY: Dict[str, str] = {
     "rmqtt-sys-topic": "rmqtt_tpu_torch.plugins.sys_topic:SysTopicPlugin",
     "rmqtt-topic-rewrite": "rmqtt_tpu_torch.plugins.topic_rewrite:TopicRewritePlugin",
@@ -591,14 +589,13 @@ PLUGIN_REGISTRY: Dict[str, str] = {
 
 
 def instantiate_plugins(ctx, settings: Settings) -> None:
-    """Register configured plugins on the context's PluginManager. Every
-    plugin (the bridges included) needs a module of ``plugins/`` or
-    ``bridge/`` that is not ported to ``rmqtt_tpu_torch`` yet, so a
-    configured one raises here, at start."""
+    """Register configured plugins on the context's PluginManager."""
+    import importlib
+
     for name in settings.default_startups:
         spec = PLUGIN_REGISTRY.get(name)
         if spec is None:
             raise ValueError(f"unknown plugin {name!r}")
-        raise NotImplementedError(
-            f"plugin {name!r} ({spec.partition(':')[0]}) is not ported to "
-            "rmqtt_tpu_torch yet (ROADMAP Queue A item 15, part 2)")
+        mod_name, _, cls_name = spec.partition(":")
+        cls = getattr(importlib.import_module(mod_name), cls_name)
+        ctx.plugins.register(cls(ctx, settings.plugins.get(name, {})))

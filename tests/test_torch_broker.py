@@ -4,16 +4,18 @@ changes listed with their reasons); it serves MQTT over TCP with every
 routed batch on ``TorchRouter(device="cpu")`` and delivers exactly what the
 JAX package's broker on its trie router delivers; with ``[retain] tpu``
 its retained replay runs on the scanner and equals the JAX broker's; a
-plugin or bridge (not yet ported) refuses the start;
+configuration that names any plugin or bridge starts it;
 ``--router xla`` and ``[retain] tpu`` need a CUDA device."""
 
 import asyncio
 import collections
 import gc
+import json
 import pathlib
 import random
 import re
 import threading
+import tomllib
 
 import pytest
 import torch
@@ -24,6 +26,7 @@ from rmqtt_tpu.broker.server import MqttBroker as JMqttBroker
 from rmqtt_tpu_torch.bench.workloads import gen_mixed, gen_topics_uniform
 from rmqtt_tpu_torch.broker import server as tserver
 from rmqtt_tpu_torch.broker.context import BrokerConfig, ServerContext
+from rmqtt_tpu_torch.conf import PLUGIN_REGISTRY
 from rmqtt_tpu_torch.router import Id, SubscriptionOptions, TorchRouter
 from rmqtt_tpu_torch.router.default import DefaultRouter
 
@@ -74,6 +77,12 @@ DELIBERATE = {
                             "call counts a failed send once on the breaker "
                             "(it counted twice, opening it after half its "
                             "threshold)",
+    "cluster/raft.py": "a vote request closes the node's breaker to the "
+                       "candidate: a leader whose breaker opened while a "
+                       "peer was down heartbeat the restarted peer only "
+                       "after the cooldown (doubled by each failed probe), "
+                       "so the peer knew no leader and its first CONNECT's "
+                       "hs_lock timed out (ROADMAP Queue C item 4)",
     "broker/hostprof.py": "its lock is reentrant: the gc callback runs on "
                           "whichever thread collects, also one that holds "
                           "the lock (a plain Lock deadlocks the broker)",
@@ -93,8 +102,6 @@ DELIBERATE = {
     "broker/failover.py": "a kernel fault in the half-open probe routes on "
                           "the card again instead of keeping the host plane",
     "broker/server.py": "parse_args(argv) split out of main(argv)",
-    "conf.py": "instantiate_plugins raises NotImplementedError for every "
-               "plugin (plugins/ and bridge/ are not ported)",
     "runtime/__init__.py": "the port's own binding: builds with g++ into "
                            "_build/, binds the trie, the topic encoder "
                            "(NativeEncoder, without the stale-library branches), "
@@ -112,7 +119,11 @@ _COPIED = ([p.relative_to(JAX_PKG).as_posix()
               "utils/__init__.py",
               "utils/failpoints.py", "utils/counter.py", "utils/sysmon.py",
               "ops/hybrid.py", "router/default.py", "router/native.py",
-              "router/cache.py", "core/topic.py"])
+              "router/cache.py", "core/topic.py", "utils/httpc.py", "utils/ec.py"]
+           + [p.relative_to(JAX_PKG).as_posix()
+              for d in ("plugins", "bridge")
+              for p in sorted((JAX_PKG / d).glob("*.py"))
+              if p.name != "__init__.py" or d == "bridge"])
 VERBATIM = [rel for rel in _COPIED if rel not in DELIBERATE]
 
 
@@ -133,6 +144,20 @@ def test_every_broker_module_is_ported():
     assert jax_side == port_side and len(port_side) == 41
     for rel in DELIBERATE:
         assert (PORT_PKG / rel).exists(), rel
+
+
+def test_every_plugin_and_bridge_module_is_ported():
+    """Every module of ``plugins/`` and ``bridge/`` and the two utilities
+    they import, and each is held to the JAX package by the copy check."""
+    def modules(pkg):
+        return ({p.relative_to(pkg).as_posix()
+                 for d in ("plugins", "bridge") for p in (pkg / d).glob("*.py")}
+                | {"utils/httpc.py", "utils/ec.py"})
+
+    jax_side, port_side = modules(JAX_PKG), modules(PORT_PKG)
+    assert jax_side == port_side and len(port_side) == 27
+    assert all((PORT_PKG / rel).exists() for rel in port_side)
+    assert port_side <= set(_COPIED)
 
 
 # ---------------------------------------------------------- live TCP drive
@@ -293,26 +318,143 @@ def test_gc_inside_the_host_profiler_lock():
     assert sum(hp.gc_pauses.values()) >= 1
 
 
-# --------------------------------------------------------- refused starts
-_UNPORTED = {
-    "plugin": ('[plugins]\ndefault_startups = ["rmqtt-counter"]\n', "rmqtt-counter"),
-    "bridge": ('[plugins]\ndefault_startups = ["rmqtt-bridge-egress-kafka"]\n',
-               "bridge_kafka"),
-}
+# ------------------------------------------------------ configured plugins
+def _toml(v) -> str:
+    """A value of a ``[plugins.<name>]`` section in TOML (inline tables)."""
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, (int, float)):
+        return repr(v)
+    if isinstance(v, str):
+        return json.dumps(v)
+    if isinstance(v, list):
+        return "[" + ", ".join(_toml(x) for x in v) + "]"
+    return "{" + ", ".join(f"{k} = {_toml(x)}" for k, x in v.items()) + "}"
 
 
-@pytest.mark.parametrize("section", sorted(_UNPORTED))
-def test_unported_section_refuses_the_start(section, tmp_path):
-    toml, match = _UNPORTED[section]
-    cfg = tmp_path / "rmqtt.toml"
-    cfg.write_text(f"[listener]\nport = 0\n{toml}")
-    args = tserver.parse_args(["--config", str(cfg), "--no-http-api"])
+def _plugin_config(name: str, tmp_path, remote: dict) -> dict:
+    """A ``[plugins.<name>]`` section that exercises the plugin; the bridges
+    point at ``remote`` (the fakes' and a second broker's ports)."""
+    http = f"http://127.0.0.1:{remote['http']}"
+    return {
+        "rmqtt-sys-topic": {"publish_interval": 0.5},
+        "rmqtt-topic-rewrite": {"rules": [{"source_topic_filter": "old/#",
+                                           "dest_topic": "new/%c"}]},
+        "rmqtt-auto-subscription": {"subscribes": [["inbox/%c", 1]]},
+        "rmqtt-counter": {},
+        "rmqtt-shared-subscription": {"strategy": "hash_topic"},
+        "rmqtt-p2p-messaging": {},
+        "rmqtt-acl": {"rules": [{"permission": "deny", "action": "publish",
+                                 "topics": ["secret/#"]}, {"permission": "allow"}]},
+        "rmqtt-web-hook": {"urls": [f"{http}/hook"], "events": ["client_connected"]},
+        "rmqtt-auth-http": {"http_auth_req": f"{http}/auth"},
+        "rmqtt-auth-jwt": {"secret": "s3cret"},
+        "rmqtt-auth-cram": {"users": {"dev": "pw"}},
+        "rmqtt-session-storage": {"path": str(tmp_path / "sessions.db")},
+        "rmqtt-message-storage": {"path": str(tmp_path / "messages.db"), "expiry": 60},
+        "rmqtt-retainer": {"path": str(tmp_path / "retain.db")},
+        "rmqtt-bridge-ingress-mqtt": {"port": remote["mqtt"],
+                                      "subscribes": [{"filter": "r/#", "qos": 1}]},
+        "rmqtt-bridge-egress-mqtt": {"port": remote["mqtt"], "forwards": ["l/#"]},
+        "rmqtt-bridge-ingress-nats": {"port": remote["nats"], "subscribes": ["n/#"]},
+        "rmqtt-bridge-egress-nats": {"port": remote["nats"], "forwards": ["n/#"]},
+        "rmqtt-bridge-ingress-kafka": {
+            "servers": f"127.0.0.1:{remote['kafka']}",
+            "subscribes": [{"topic": "cmds", "local_topic": "k/${topic}",
+                            "offset": "earliest"}]},
+        "rmqtt-bridge-egress-kafka": {
+            "servers": f"127.0.0.1:{remote['kafka']}",
+            "forwards": [{"filter": "k/#", "remote_topic": "events"}]},
+        "rmqtt-bridge-egress-reductstore": {
+            "url": http.replace(str(remote["http"]), str(remote["reduct"])),
+            "forwards": [{"filter": "rs/#", "bucket": "mqtt", "entry": "events"}]},
+        "rmqtt-bridge-ingress-pulsar": {
+            "servers": f"127.0.0.1:{remote['pulsar']}",
+            "subscribes": [{"topic": "persistent://public/default/cmds",
+                            "subscription": "rmqtt", "local_topic": "p/cmds"}]},
+        "rmqtt-bridge-egress-pulsar": {
+            "servers": f"127.0.0.1:{remote['pulsar']}",
+            "forwards": [{"filter": "p/#",
+                          "remote_topic": "persistent://public/default/events"}]},
+    }[name]
 
-    async def start():
-        await asyncio.wait_for(tserver._amain(args), timeout=20.0)
 
-    with pytest.raises(NotImplementedError, match=match):
-        asyncio.run(start())
+async def _http_ok(reader, writer):
+    """A local HTTP endpoint that allows every auth request and takes every
+    hook post."""
+    try:
+        length = 0
+        await reader.readline()
+        while (line := await reader.readline()) not in (b"\r\n", b""):
+            if line.lower().startswith(b"content-length"):
+                length = int(line.split(b":")[1])
+        await reader.readexactly(length)
+        writer.write(b"HTTP/1.1 200 OK\r\nContent-Length: 5\r\n\r\nallow")
+        await writer.drain()
+    finally:
+        writer.close()
+
+
+@pytest.mark.parametrize("name", sorted(PLUGIN_REGISTRY))
+def test_configured_plugin_starts(name, tmp_path, monkeypatch):
+    """A TOML naming the plugin in ``[plugins] default_startups`` starts the
+    port's broker through ``parse_args`` and ``_amain``: the plugin is
+    registered with its section and active. The bridges point at the JAX
+    package's test fakes (Kafka, NATS, Pulsar, ReductStore) and at a second
+    broker of the port."""
+    from tests.test_kafka_bridge import FakeKafka
+    from tests.test_nats_limit import MiniNatsServer
+    from tests.test_pulsar_bridge import FakePulsar
+    from tests.test_reductstore_bridge import FakeReduct
+
+    started = []
+    broker_cls = tserver.MqttBroker
+
+    class Recorded(broker_cls):
+        def __init__(self, ctx):
+            super().__init__(ctx)
+            started.append(self)
+
+    monkeypatch.setattr(tserver, "MqttBroker", Recorded)
+
+    async def run():
+        fakes = [FakeKafka(), MiniNatsServer(), FakePulsar(), FakeReduct()]
+        for f in fakes:
+            await f.start()
+        http = await asyncio.start_server(_http_ok, "127.0.0.1", 0)
+        remote = broker_cls(ServerContext(BrokerConfig(port=0)))
+        await remote.start()
+        ports = {"kafka": fakes[0].port, "nats": fakes[1].port, "pulsar": fakes[2].port,
+                 "reduct": fakes[3].port, "http": http.sockets[0].getsockname()[1],
+                 "mqtt": remote.port}
+        section = "\n".join(f"{k} = {_toml(v)}"
+                            for k, v in _plugin_config(name, tmp_path, ports).items())
+        cfg = tmp_path / "rmqtt.toml"
+        cfg.write_text(f'[listener]\nport = 0\n[plugins]\ndefault_startups = ["{name}"]\n'
+                       f"[plugins.{name}]\n{section}\n")
+        args = tserver.parse_args(["--config", str(cfg), "--no-http-api"])
+        main = asyncio.create_task(tserver._amain(args))
+        try:
+            while not (started and started[0]._server is not None):
+                assert not main.done(), main.exception()
+                await asyncio.sleep(0.02)
+            (plugin,) = started[0].ctx.plugins.describe()
+            got = (plugin["name"], plugin["active"],
+                   started[0].ctx.plugins.get(name).config)
+        finally:
+            main.cancel()
+            await asyncio.gather(main, return_exceptions=True)
+            if started:
+                await started[0].stop()
+            await remote.stop()
+            http.close()
+            for f in fakes:
+                await f.stop()
+        return got, section
+
+    (got_name, active, config), section = asyncio.run(asyncio.wait_for(run(), 30.0))
+    assert (got_name, active) == (name, True)
+    assert config == tomllib.loads(section)
 
 
 def test_router_xla_needs_cuda(monkeypatch):

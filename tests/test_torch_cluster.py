@@ -10,8 +10,10 @@ member takes a message is a load-balancing choice.
 Also the two faults of the reference's ``cluster/transport.py`` that the
 port's copy fixes (``PeerClient``): concurrent first calls opened two
 connections and the dropped one tore down the live one, and a failed
-connect counted twice on the peer's breaker. Each case fails on the JAX
-package's ``PeerClient``."""
+connect counted twice on the peer's breaker; and the fault of its
+``cluster/raft.py``: a leader kept its breaker to a restarted peer open
+after the peer asked for a vote. Each case fails on the JAX package's
+module."""
 
 import asyncio
 import collections
@@ -30,11 +32,13 @@ import pytest
 import rmqtt_tpu.broker.context as j_context
 import rmqtt_tpu.broker.server as j_server
 import rmqtt_tpu.cluster.broadcast as j_broadcast
+import rmqtt_tpu.cluster.raft as j_raft_node
 import rmqtt_tpu.cluster.raft_mode as j_raft_mode
 import rmqtt_tpu.cluster.transport as j_transport
 import rmqtt_tpu_torch.broker.context as t_context
 import rmqtt_tpu_torch.broker.server as t_server
 import rmqtt_tpu_torch.cluster.broadcast as t_broadcast
+import rmqtt_tpu_torch.cluster.raft as t_raft_node
 import rmqtt_tpu_torch.cluster.raft_mode as t_raft_mode
 import rmqtt_tpu_torch.cluster.transport as t_transport
 from rmqtt_tpu_torch.bench.workloads import gen_mixed, gen_topics_uniform
@@ -45,9 +49,11 @@ from tests.mqtt_client import TestClient
 
 PKGS = {
     "jax": types.SimpleNamespace(ctx=j_context, server=j_server, bcast=j_broadcast,
-                                 raft=j_raft_mode, transport=j_transport),
+                                 raft=j_raft_mode, raft_node=j_raft_node,
+                                 transport=j_transport),
     "torch": types.SimpleNamespace(ctx=t_context, server=t_server, bcast=t_broadcast,
-                                   raft=t_raft_mode, transport=t_transport),
+                                   raft=t_raft_mode, raft_node=t_raft_node,
+                                   transport=t_transport),
 }
 SHARE = "$share/g/work/#"
 
@@ -479,3 +485,46 @@ def test_peer_client_counts_a_failed_connect_once(pkg):
     n = breaker.threshold
     assert states[:-1] == [(k, breaker.CLOSED) for k in range(1, n)]
     assert states[-1][1] == breaker.OPEN
+
+
+@pytest.mark.parametrize("pkg", ["torch"])
+def test_vote_request_closes_the_leader_breaker(pkg):
+    """A leader's breaker to a peer opens while the peer is down. When the
+    peer comes back with the same id and an empty log, its first (pre-)vote
+    request reaches the leader: the leader closes its breaker to it, and
+    its next heartbeat reaches the peer, which so learns the leader before
+    its first CONNECT proposes a handshake lock. The JAX package's leader
+    keeps the breaker open for its cooldown (3 s, doubled by each failed
+    probe), and the restarted node's proposals fail meanwhile."""
+    m = PKGS[pkg]
+    port = _free_port()
+
+    async def run():
+        peer = m.transport.PeerClient(3, "127.0.0.1", port)
+        node = m.raft_node.RaftNode(1, {3: peer}, apply_cb=None)
+        node.term, node.state, node.leader_id = 1, m.raft_node.LEADER, 1
+        node._next_index, node._match_index = {3: 1}, {3: 0}
+        for _ in range(peer.breaker.threshold):
+            await node._replicate(3)  # the peer is down: each heartbeat fails
+        assert peer.breaker.state == peer.breaker.OPEN
+        heard = []
+
+        async def restarted(mtype, body, _node):
+            heard.append(mtype)
+            return {"term": body["term"], "success": True}
+
+        server = m.transport.ClusterServer("127.0.0.1", port, restarted)
+        await server.start()
+        try:
+            reply = await node.on_message(m.raft_node.RAFT_VOTE, {
+                "term": 1, "candidate": 3, "last_log_index": 0,
+                "last_log_term": 0, "prevote": True})
+            await node._replicate(3)
+            return reply, heard
+        finally:
+            await peer.close()
+            await server.stop()
+
+    reply, heard = asyncio.run(asyncio.wait_for(run(), timeout=20.0))
+    assert reply == {"term": 1, "granted": False}
+    assert heard == [t_raft_node.RAFT_APPEND]

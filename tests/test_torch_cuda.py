@@ -2,7 +2,8 @@
 the card against the same router on the CPU, the port's broker with
 every batch on the card against the ``DefaultRouter`` oracle, and its
 retained replay through the retained-scan kernels against ``RetainTree``,
-and ``--workers 2 --router xla``: two broker processes on one card.
+a broker whose retainer plugin loads its store into the card's retained
+table, and ``--workers 2 --router xla``: two broker processes on one card.
 
 This file imports nothing of JAX, so it also runs where JAX is not
 installed: ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
@@ -347,8 +348,12 @@ def test_broker_retained_replay_on_cuda(cuda):
         await broker.start()
         try:
             pub = await LoadClient.connect(broker.port, "pub")
-            for t, p in zip(topics, payloads):
+            for i, (t, p) in enumerate(zip(topics, payloads)):
                 pub.publish(t, p, retain=True)
+                if i % 256 == 255:
+                    # paced: a connection a socket buffer ahead of the
+                    # broker stalls on the card's host (PERF.md §7)
+                    await pub.ping()
             await pub.ping()
             while broker.ctx.retain.count() < len(topics):
                 await asyncio.sleep(0.05)
@@ -374,6 +379,98 @@ def test_broker_retained_replay_on_cuda(cuda):
     got, launched, scans = asyncio.run(asyncio.wait_for(run(), timeout=120.0))
     assert got == want and sum(want.values()) > 1000
     assert launched >= len(filters) and scans == len(filters)
+
+
+@pytest.mark.cuda
+def test_plugin_broker_restart_on_cuda(cuda, tmp_path, monkeypatch):
+    """The retainer plugin's store (3,000 messages, written by a broker on
+    the host trie) loads at start into a broker with ``retain_tpu`` on the
+    card (threshold 100): a ``#`` (past 16 candidate chunks: the full-stream
+    kernel) and a narrow SUBSCRIBE (the gather kernel) replay equal to
+    ``RetainTree``; a filter the
+    auto-subscription plugin adds at CONNECT routes through the words
+    kernel with every batch on the card."""
+    from rmqtt_tpu_torch.broker.fitter import FitterConfig
+    from rmqtt_tpu_torch.core.trie import RetainTree
+    from rmqtt_tpu_torch.plugins.auto_subscription import AutoSubscriptionPlugin
+    from rmqtt_tpu_torch.plugins.retainer import RetainerPlugin
+
+    monkeypatch.setenv("RMQTT_HYBRID_MAX", "0")
+    store = {"path": str(tmp_path / "retainer.db")}
+    topics = gen_retained_topics(random.Random(11), 3000)
+    payloads = [b"r%d" % i for i in range(len(topics))]
+    filters = ["#", "/".join(topics[0].split("/")[:2]) + "/#"]
+    oracle = RetainTree()
+    for i, t in enumerate(topics):
+        oracle.insert(t, i)
+    want = collections.Counter((f"s{j}", topics[i], payloads[i])
+                               for j, f in enumerate(filters) for _lv, i in oracle.matches(f))
+
+    async def write():
+        broker = MqttBroker(ServerContext(BrokerConfig(port=0)))
+        broker.ctx.plugins.register(RetainerPlugin(broker.ctx, store))
+        await broker.start()
+        try:
+            pub = await LoadClient.connect(broker.port, "pub")
+            for i, (t, p) in enumerate(zip(topics, payloads)):
+                pub.publish(t, p, retain=True)
+                if i % 256 == 255:
+                    # paced: a connection a socket buffer ahead of the
+                    # broker stalls on the card's host (PERF.md §7)
+                    await pub.ping()
+            await pub.ping()
+            while broker.ctx.retain.count() < len(topics):
+                await asyncio.sleep(0.05)
+            await pub.close()
+        finally:
+            await broker.stop()
+
+    async def restart():
+        # the replay of '#' is enqueued at once: past the default queue of 1,000
+        cfg = BrokerConfig(port=0, retain_tpu=True, retain_tpu_threshold=100,
+                           fitter=FitterConfig(max_mqueue=100_000))
+        ctx = ServerContext(cfg, router=TorchRouter(device=cuda), retain_device=cuda)
+        ctx.plugins.register(RetainerPlugin(ctx, store))
+        ctx.plugins.register(AutoSubscriptionPlugin(ctx, {"subscribes": [["inbox/%c", 0]]}))
+        broker = MqttBroker(ctx)
+        await broker.start()
+        try:
+            loaded = ctx.retain.count()
+            g0, f0 = RP.retained_scan_gather.launches, RP.retained_scan_full.launches
+            subs = [await LoadClient.connect(broker.port, f"s{j}") for j in range(len(filters))]
+            for c, f in zip(subs, filters):
+                await c.subscribe([f])
+            per = collections.Counter()
+            for (cid, _t, _p), k in want.items():
+                per[cid] += k
+            await asyncio.gather(*(c.wait_count(per[c.client_id], 60.0) for c in subs))
+            await asyncio.sleep(0.3)
+            got = collections.Counter((c.client_id, t, p) for c in subs
+                                      for t, p, _ts in c.received)
+            launched = (RP.retained_scan_gather.launches - g0,
+                        RP.retained_scan_full.launches - f0)
+            n0 = MW.match_words_packed.launches
+            pub = await LoadClient.connect(broker.port, "pub")
+            pub.publish("inbox/s1", b"auto")
+            await pub.ping()
+            await subs[1].wait_count(per["s1"] + 1, 30.0)
+            inbox = subs[1].received[-1][:2]
+            words = MW.match_words_packed.launches - n0
+            st = ctx.routing.stats()
+            for c in [pub, *subs]:
+                await c.close()
+            return loaded, got, launched, inbox, words, st
+        finally:
+            await broker.stop()
+
+    asyncio.run(asyncio.wait_for(write(), timeout=60.0))
+    loaded, got, launched, inbox, words, st = asyncio.run(
+        asyncio.wait_for(restart(), timeout=120.0))
+    assert loaded == len(topics)
+    assert got == want and sum(want.values()) > len(topics)
+    assert launched[0] > 0 and launched[1] > 0
+    assert inbox == ("inbox/s1", b"auto") and words > 0
+    assert st["routing_failover_host_routed"] == 0 and st["routing_failovers"] == 0
 
 
 @pytest.mark.cuda
