@@ -58,6 +58,20 @@ Phases, each of which fails the run (nonzero exit, no result line):
    (``run_retained``'s pattern, 8 rounds), and publish topics/s there;
 5. the same topics through a ``TorchRouter`` on legacy tiles
    (``RMQTT_PACKED=0``), equal to phase 4's results;
+4m. the matcher's hand-selected modes, after phase 5, each a
+   ``PartitionedMatcher`` built with its environment over phase 4's packed
+   table or phase 5's legacy table: (a) the unfused global path
+   (``RMQTT_FUSED=0``), (b) topk (``RMQTT_COMPACT=topk``), (c) fused on
+   segments (``RMQTT_SEG_BYTES=2097152``: 4), (d) unfused on segments (4),
+   (e) legacy on segments (``RMQTT_SEG_BYTES=8388608``: 3); each routes the
+   32,768 topics in batches of 16,384 twice (the NC split engages; the
+   first pass pays the full upload) and 64 batches of 1 and of 8, every
+   topic equal to the reference router's matcher at the same table
+   version, then takes 2,000 removes and 2,000 adds as one delta upload
+   (into its segments) and routes the topics again, equal; it prints
+   topics/s, the words-kernel launches and ``hbm_breakdown()``, and times
+   ``compact_global`` and ``compact_words`` at the 16,384-topic shape and the
+   delta scatter of 64 chunks into a 2,048-chunk segment by CUDA events;
 6. the broker: ``python -m rmqtt_tpu_torch.broker --router xla`` as a child
    process with ``RMQTT_HYBRID_MAX=0`` (every batch on the device), driven
    over TCP by the load client of ``bench/mqtt_load.py``. 6a: 64 subscriber
@@ -151,6 +165,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import collections
+import contextlib
 import gc
 import json
 import os
@@ -189,7 +204,8 @@ from rmqtt_tpu_torch.ops import match_words as MW
 from rmqtt_tpu_torch.ops import retained_part as RP
 from rmqtt_tpu_torch.ops._build import SOURCES, kernel_library
 from rmqtt_tpu_torch.ops.encode import PackedLayout
-from rmqtt_tpu_torch.ops.partitioned import split_buckets
+from rmqtt_tpu_torch.ops import partitioned as PP
+from rmqtt_tpu_torch.ops.partitioned import PartitionedMatcher, split_buckets
 from rmqtt_tpu_torch.router import Id, SubscriptionOptions, TorchRouter
 from rmqtt_tpu_torch.runtime import NativeEncoder
 from rmqtt_tpu_torch.utils.devfetch import set_fetch_timeout
@@ -641,19 +657,26 @@ def phase_retained_scanner(table, scanner, tree, filters, router, pub_topics) ->
 
 
 # ------------------------------------------------------------- phase 4, 5
-def build_router(filters, device, packed: bool) -> TorchRouter:
-    """A router with every batch on the device (``RMQTT_HYBRID_MAX=0``)."""
-    env = {"RMQTT_PACKED": "1" if packed else "0", "RMQTT_HYBRID_MAX": "0"}
+@contextlib.contextmanager
+def environment(env: dict):
+    """``env`` set in ``os.environ`` inside the block, restored after."""
     old = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     try:
-        router = TorchRouter(device=device)
+        yield
     finally:
         for k, v in old.items():
             if v is None:
                 del os.environ[k]
             else:
                 os.environ[k] = v
+
+
+def build_router(filters, device, packed: bool) -> TorchRouter:
+    """A router with every batch on the device (``RMQTT_HYBRID_MAX=0``)."""
+    with environment({"RMQTT_PACKED": "1" if packed else "0",
+                      "RMQTT_HYBRID_MAX": "0"}):
+        router = TorchRouter(device=device)
     opts = SubscriptionOptions()
     t0 = time.perf_counter()
     for i, f in enumerate(filters):
@@ -927,6 +950,171 @@ def phase_legacy(router: TorchRouter, topics, batch: int, want_filters) -> None:
         del got
     log(f"    all {len(topics)} topics equal to phase 4's packed-tile results "
         f"in both passes")
+
+
+# --------------------------------------------------------------- phase 4m
+MODE_SMALL_BATCHES = 64  # 4m: batches of 1 and of 8 after the full pass
+#: 4m's modes: (label, environment while the matcher is built, table);
+#: SEG_BYTES over phase 4's 8,388,608 B of packed tiles and phase 5's
+#: 23,068,672 B of legacy tiles gives 4, 4 and 3 segments
+MODES_4M = (
+    ("a unfused global", {"RMQTT_FUSED": "0"}, "packed"),
+    ("b topk", {"RMQTT_COMPACT": "topk"}, "packed"),
+    ("c fused, segmented", {"RMQTT_SEG_BYTES": "2097152"}, "packed"),
+    ("d unfused, segmented", {"RMQTT_SEG_BYTES": "2097152", "RMQTT_FUSED": "0"},
+     "packed"),
+    ("e legacy, segmented", {"RMQTT_PACKED": "0", "RMQTT_SEG_BYTES": "8388608"},
+     "legacy"),
+)
+
+
+def _same_fids(what: str, batch, got, want) -> None:
+    for topic, g, w in zip(batch, got, want):
+        if not np.array_equal(g, w):
+            raise AssertionError(f"4m {what}: {topic!r} routed {g[:8]}... expected "
+                                 f"{w[:8]}... ({len(g)} vs {len(w)})")
+
+
+def _mode_pass(m, ref, topics, batch: int, what: str) -> tuple:
+    """Every topic through the mode's matcher (pipelined depth 2) and then
+    the reference router's matcher, the same batches at the same table
+    version → (mode topics/s, the mode's words-kernel launches)."""
+    counters = (MW.match_words_packed, MW.match_words_legacy)
+    n0 = sum(c.launches for c in counters)
+    batches = [topics[i:i + batch] for i in range(0, len(topics), batch)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handles = [m.match_submit(batches[0])]
+    got = []
+    for bt in batches[1:]:
+        handles.append(m.match_submit(bt))
+        got.extend(m.match_complete(handles.pop(0)))
+    got.extend(m.match_complete(handles.pop(0)))
+    secs = time.perf_counter() - t0
+    launches = sum(c.launches for c in counters) - n0
+    want = [r for bt in batches for r in ref.matcher.match(bt)]
+    _same_fids(what, topics, got, want)
+    return len(topics) / secs, launches
+
+
+def _churn_router(router, filters, n: int, rng, tag: str) -> None:
+    """``n`` removes of live filters and ``n`` adds of fresh ones, through
+    the router so its relations stay whole."""
+    live = [(i, f) for i, f in enumerate(filters) if f in router._filter_to_fid]
+    opts = SubscriptionOptions()
+    for i, f in rng.sample(live, n):
+        router.remove(f, Id(1, f"c{i}"))
+    fresh = [f for f in gen_mixed(rng, 2 * n) if f not in router._filter_to_fid][:n]
+    for j, f in enumerate(fresh):
+        router.add(f, Id(1, f"{tag}{j}"), opts)
+
+
+def phase_modes(packed_router: TorchRouter, legacy_router: TorchRouter, filters,
+                topics, batch: int, churn: int, seed: int) -> dict:
+    """4m: the matcher's hand-selected modes over phases 4's and 5's tables,
+    each held to that table's reference router on every topic before and
+    after a churn, which each must take as a delta upload."""
+    log("[4m] the hand-selected matcher modes on phase 4's and 5's tables")
+    card = card_line()
+    rng = random.Random(seed + 4)
+    out = {"launches_packed": 0, "launches_legacy": 0, "modes": {}}
+    for label, env, kind in MODES_4M:
+        t0 = time.perf_counter()
+        ref = packed_router if kind == "packed" else legacy_router
+        ref_bytes = ref.matcher.hbm_breakdown()["tiles_bytes"]
+        with environment(env):  # the matcher reads it when it is built
+            m = PartitionedMatcher(ref.table, device=ref.matcher.device)
+        # the first pass pays the full upload and, where a churn before it
+        # dropped candidate-cache entries, the cold encode; the second is warm
+        tps0, n0 = _mode_pass(m, ref, topics, batch, label)
+        tps, n = _mode_pass(m, ref, topics, batch, label)
+        n += n0
+        small = 0
+        for size in (1, 8):
+            for k in range(MODE_SMALL_BATCHES):
+                bt = topics[k * size:(k + 1) * size]
+                c0 = MW.match_words_packed.launches + MW.match_words_legacy.launches
+                got = m.match(bt)
+                small += (MW.match_words_packed.launches
+                          + MW.match_words_legacy.launches - c0)
+                _same_fids(f"{label} batch of {size}", bt, got, ref.matcher.match(bt))
+        hbm = m.hbm_breakdown()
+        seg_bytes = int(env.get("RMQTT_SEG_BYTES", 0))
+        want_segs = -(-ref_bytes // seg_bytes) if 0 < seg_bytes < ref_bytes else 0
+        if hbm["segments"] != want_segs:
+            raise AssertionError(f"4m {label}: {hbm['segments']} segments, the "
+                                 f"tiles' {ref_bytes} B give {want_segs}")
+        full0, delta0 = m.full_uploads, m.delta_uploads
+        _churn_router(ref, filters, churn, rng, f"m{label[0]}")
+        tps2, n2 = _mode_pass(m, ref, topics, batch, f"{label} after the churn")
+        if m.full_uploads != full0 or m.delta_uploads <= delta0:
+            raise AssertionError(f"4m {label}: the churn took {m.full_uploads - full0} "
+                                 f"full and {m.delta_uploads - delta0} delta uploads")
+        if m.hbm_breakdown()["segments"] != want_segs:
+            raise AssertionError(f"4m {label}: the segments changed in the churn")
+        launches = n + small + n2
+        if launches <= 0:
+            raise AssertionError(f"4m {label}: no words kernel launched")
+        out["launches_" + kind] += launches
+        out["modes"][label] = {"topics_per_s": [tps0, tps, tps2], "launches": launches,
+                               "hbm": hbm, "fused_batches": m.fused_batches}
+        log(f"    ({label}) {'; '.join(f'{k}={v}' for k, v in env.items())}: "
+            f"{len(topics)} topics in batches of {batch} at {tps0:.1f} topics/s "
+            f"(the full upload), {tps:.1f} warm, {tps2:.1f} after -{churn} "
+            f"+{churn} filters (1 delta upload, no full; the churn's dropped "
+            f"candidate-cache entries encode cold); {MODE_SMALL_BATCHES} batches of 1 and of 8; all equal to "
+            f"the {kind} reference router; words-kernel launches {launches} "
+            f"({small} for the small batches); fused batches {m.fused_batches}; "
+            f"hbm {hbm}; {time.perf_counter() - t0:.1f} s; {card}")
+        del m
+    out["programs"] = _time_mode_programs(packed_router, topics, batch, card)
+    return out
+
+
+def _time_mode_programs(router, topics, batch: int, card: str) -> dict:
+    """``compact_global`` and ``compact_words`` at the 16,384-topic shape
+    (phase 4's words of one batch) and the delta scatter of 64 chunks into
+    a 2,048-chunk segment, by CUDA events, beside their bounds by bytes."""
+    t = router.table
+    st = router.matcher._refresh()
+    ttok, tlen, tdollar, cids, _nc = t.encode_topics(topics[:batch], pad_batch_to=batch)
+    _lay, tt = t.translate_packed(ttok)
+    dev = st.tiles.device
+    n0 = MW.match_words_packed.launches
+    words = MW.match_words_packed(st.tiles, *(_put(a, dev) for a in (tt, tlen, tdollar, cids)),
+                                  st.layout)
+    MW.match_words_packed.launches = n0  # a timing input, not a path's launch
+    b, w = words.shape
+    g = router.matcher._budget_for(batch, cids.shape[1])
+    wbytes = words.numel() * 4
+    out = {}
+    wire = PP.compact_global(words, g)
+    out["compact_global"] = {
+        "ms": time_cuda(lambda: PP.compact_global(words, g), reps=20),
+        "bound_ms": (wbytes + wire.numel() * wire.element_size()) / HBM_BYTES_PER_S * 1e3,
+        "library_ms": None, "shape": [b, w], "budget": g}
+    kw = min(32, w)
+    out["compact_words"] = {
+        "ms": time_cuda(lambda: PP.compact_words(words, 32), reps=20),
+        "bound_ms": (wbytes + b * (2 * kw + 1) * 4) / HBM_BYTES_PER_S * 1e3,
+        "shape": [b, w], "max_words": 32}
+    val = torch.where(words != 0, w - torch.arange(w, dtype=torch.int32, device=dev), 0)
+    out["compact_words"]["library_ms"] = time_cuda(lambda: torch.topk(val, kw), reps=20)
+    seg = st.tiles[:2049].clone()  # a segment of 2,048 chunks and its lead chunk
+    k = 64
+    idx = torch.arange(1, seg.shape[0], max(1, (seg.shape[0] - 1) // k),
+                       device=dev)[:k]
+    rows = st.tiles[:k].clone()
+    tile_bytes = st.tiles[0].numel() * st.tiles.element_size()
+    out["delta_scatter"] = {
+        "ms": time_cuda(lambda: PP._scatter_rows(seg, idx, rows), reps=50),
+        "bound_ms": (2 * k * tile_bytes + k * 8) / HBM_BYTES_PER_S * 1e3,
+        "library_ms": "the same call (index_copy_)", "chunks": k}
+    for name, r in out.items():
+        log(f"    {name}: {r['ms']:.4f} ms by CUDA events, bound {r['bound_ms']:.5f} ms "
+            f"by bytes; library {r['library_ms'] if not isinstance(r['library_ms'], float) else round(r['library_ms'], 4)}; "
+            f"{ {k2: v for k2, v in r.items() if k2 not in ('ms', 'bound_ms', 'library_ms')} }; {card}")
+    return out
 
 
 # ---------------------------------------------------------------- phase 6
@@ -2525,7 +2713,12 @@ def main(argv=None) -> int:
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} was never launched on its path")
-    del legacy_router, want_filters  # the broker phase needs the room
+    del want_filters
+    MW.match_words_packed.launches = 0
+    MW.match_words_legacy.launches = 0
+    modes = timed("4m", phase_modes, packed_router, legacy_router, filters, topics,
+                  args.batch, args.churn, args.seed)
+    del legacy_router  # the broker phase needs the room
 
     # the brokers run in child processes: their launches are the
     # differences of their own counters (/api/v1/stats) across 6a and 6d
@@ -2546,8 +2739,10 @@ def main(argv=None) -> int:
                                "recovered broker, phase 6f": recovered["launches_packed"],
                                "plugin broker, phase 6g": plugin["launches_packed"]},
         "match_words_legacy": {"router with RMQTT_PACKED=0, phase 5":
-                               launches["match_words_legacy"]},
+                               launches["match_words_legacy"],
+                               "router modes, phase 4m": modes["launches_legacy"]},
     }
+    by_path["match_words_packed"]["router modes, phase 4m"] = modes["launches_packed"]
     for mode in ("gather", "full"):
         name = f"retained_scan_{mode}"
         by_path[name] = {"scanner at 1M, phase 4r": launches[name],
@@ -2583,7 +2778,8 @@ def main(argv=None) -> int:
         f"{retained['scans_per_s_interleaved']:.1f} with "
         f"{retained['publish_topics_per_s']:.1f} publish topics/s; encode ms per "
         f"32,768 topics native / Python (warm) {encode['native_warm_ms']:.3f} / "
-        f"{encode['python_warm_ms']:.3f}; 6a deliveries/s {broker['deliveries_per_s']:.1f} "
+        f"{encode['python_warm_ms']:.3f}; 4m topics/s first / warm / after the churn "
+        f"{ {k[0]: [round(x, 1) for x in v['topics_per_s']] for k, v in modes['modes'].items()} }; 6a deliveries/s {broker['deliveries_per_s']:.1f} "
         f"with the profiler seams live; 6e deliveries/s {fabric['deliveries_per_s']:.1f} "
         f"through {FABRIC_WORKERS} fabric workers; 6f recovery "
         f"{recovered['recovery_ms']:.3f} ms, restart to listening "

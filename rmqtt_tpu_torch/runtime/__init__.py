@@ -6,10 +6,9 @@ It provides the native topic trie (``NativeTrie``: the host mirror behind
 ``native`` router), the batched topic encoder (``NativeEncoder``: the
 default encode of ``ops/partitioned.py``'s ``PartitionedTable``), the MQTT
 frame scanner and PUBLISH encoder the codec uses (``codec_scan``,
-``codec_encode_publish``) and topic validation (``topic_validate``). The
-native match decoders (``rt_match_decode*``) serve only the topk and
-unfused matcher modes, which the port does not run yet (ROADMAP Queue A
-item 9), so they are not bound.
+``codec_encode_publish``), topic validation (``topic_validate``) and the
+host match decoders of the matcher's unfused and topk modes
+(``match_decode_routes``, ``match_decode``).
 
 The shared library is built at first use with ``g++`` into
 ``rmqtt_tpu_torch/_build/``, under a name keyed on a hash of the sources
@@ -120,6 +119,17 @@ def load() -> Optional[ctypes.CDLL]:
             i32p, i32p, i32p, i32p,
         ]
         lib.rt_enc_encode.restype = ctypes.c_int64
+        u32p = ctypes.POINTER(ctypes.c_uint32)
+        lib.rt_match_decode.argtypes = [
+            i32p, u32p, ctypes.c_int64, ctypes.c_int64, i32p, ctypes.c_int64,
+            ctypes.c_int32, ctypes.c_int32, i64p, i64p, ctypes.c_int64, i64p,
+        ]
+        lib.rt_match_decode.restype = ctypes.c_int64
+        lib.rt_match_decode_routes.argtypes = [
+            u32p, ctypes.c_int64, i64p, i32p, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, i64p, i64p,
+        ]
+        lib.rt_match_decode_routes.restype = ctypes.c_int64
         lib.rt_codec_scan.argtypes = [
             ctypes.c_char_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int64,
             i64p, ctypes.c_int64, i64p, ctypes.POINTER(ctypes.c_int32),
@@ -188,6 +198,71 @@ def topic_validate(topic: str, is_filter: bool) -> Optional[bool]:
 
 def available() -> bool:
     return load() is not None
+
+
+def match_decode_routes(routes: np.ndarray, counts: np.ndarray,
+                        chunk_ids: np.ndarray, b: int, wpc: int, chunk: int,
+                        fid_map: np.ndarray):
+    """Native route-level global compaction → flat per-topic-sorted fids;
+    None if the runtime is unavailable. routes uint32, counts int64 (per
+    PADDED topic), chunk_ids int32, fid_map int64, all C-contiguous. The
+    route total is known up front (= counts.sum() = len(routes)), so
+    unlike the word decoders there is no two-pass cap dance."""
+    lib = load()
+    if lib is None:
+        return None
+    bp, nc = chunk_ids.shape
+    fid_map = np.ascontiguousarray(fid_map, dtype=np.int64)
+    i32 = ctypes.POINTER(ctypes.c_int32)
+    i64 = ctypes.POINTER(ctypes.c_int64)
+    u32 = ctypes.POINTER(ctypes.c_uint32)
+    n = int(routes.shape[0])
+    out = np.empty(n, dtype=np.int64)
+    total = lib.rt_match_decode_routes(
+        routes.ctypes.data_as(u32), n, counts.ctypes.data_as(i64),
+        chunk_ids.ctypes.data_as(i32), b, bp, nc, wpc, chunk,
+        fid_map.ctypes.data_as(i64), out.ctypes.data_as(i64),
+    )
+    if total < 0:
+        raise AssertionError(
+            "rt_match_decode_routes hit an out-of-range route/fid/count — "
+            "kernel/compaction bug"
+        )
+    return out
+
+
+def match_decode(wi: np.ndarray, wb: np.ndarray, chunk_ids: np.ndarray,
+                 wpc: int, chunk: int, fid_map: np.ndarray):
+    """Native compact-words → (flat sorted fids, per-topic counts); None if
+    the runtime is unavailable. Arrays must be C-contiguous int32/uint32
+    except fid_map (int64)."""
+    lib = load()
+    if lib is None:
+        return None
+    b, k = wi.shape
+    nc = chunk_ids.shape[1]
+    fid_map = np.ascontiguousarray(fid_map, dtype=np.int64)
+    counts = np.empty(b, dtype=np.int64)
+    cap = max(64, int(b) * 16)
+    i32 = ctypes.POINTER(ctypes.c_int32)
+    i64 = ctypes.POINTER(ctypes.c_int64)
+    u32 = ctypes.POINTER(ctypes.c_uint32)
+    while True:
+        out = np.empty(cap, dtype=np.int64)
+        total = lib.rt_match_decode(
+            wi.ctypes.data_as(i32), wb.ctypes.data_as(u32), b, k,
+            chunk_ids.ctypes.data_as(i32), nc, wpc, chunk,
+            fid_map.ctypes.data_as(i64),
+            out.ctypes.data_as(i64), cap, counts.ctypes.data_as(i64),
+        )
+        if total < 0:
+            raise AssertionError(
+                "rt_match_decode hit an out-of-range fid (cleared-row "
+                "sentinel or overflow) — kernel/compaction bug"
+            )
+        if total <= cap:
+            return out[:total], counts
+        cap = int(total)
 
 
 class NativeTrie:

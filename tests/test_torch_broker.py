@@ -295,6 +295,48 @@ def test_load_client_wave_on_cpu(monkeypatch):
     assert got == want and secs > 0 and fused > 0
 
 
+def test_unfused_router_knob_and_wave_on_cpu(monkeypatch):
+    """``RMQTT_FUSED=0``: the router's matcher binds the ``fused`` knob
+    (source ``env``) in the knob registry, and a live TCP wave through an
+    in-process broker on ``TorchRouter(device="cpu")`` is exact, every batch
+    on the unfused global path (no fused batch)."""
+    from rmqtt_tpu_torch.bench.mqtt_load import (LoadClient, connect_and_subscribe,
+                                                 expected_deliveries, oracle_router,
+                                                 publish_wave)
+    from rmqtt_tpu_torch.broker.knobs import build_registry
+
+    monkeypatch.setenv("RMQTT_HYBRID_MAX", "0")
+    monkeypatch.setenv("RMQTT_FUSED", "0")
+    rng = random.Random(9)
+    filters = gen_mixed(rng, 300)
+    subs = {f"s{k}": filters[k::4] for k in range(4)}
+    topics = gen_topics_uniform(rng, 200)
+    payloads = [b"u%d" % i for i in range(len(topics))]
+    want = expected_deliveries(oracle_router(subs), topics, payloads)
+    assert sum(want.values()) > 200
+
+    async def run():
+        router = TorchRouter(device="cpu")
+        rows = {r["name"]: r for r in build_registry(router, None).snapshot()}
+        assert rows["fused"]["value"] is False and rows["fused"]["source"] == "env"
+        assert "pallas" not in rows
+        broker = tserver.MqttBroker(ServerContext(BrokerConfig(port=0), router=router))
+        await broker.start()
+        try:
+            subscribers = await connect_and_subscribe(broker.port, subs)
+            pubs = [await LoadClient.connect(broker.port, f"p{k}") for k in range(4)]
+            got, _secs = await publish_wave(pubs, subscribers, topics, payloads,
+                                            want, timeout=15.0, quiet=0.2)
+            for c in [*subscribers, *pubs]:
+                await c.close()
+            return got, router.matcher.fused_batches
+        finally:
+            await broker.stop()
+
+    got, fused = asyncio.run(asyncio.wait_for(run(), timeout=20.0))
+    assert got == want and fused == 0
+
+
 def test_gc_inside_the_host_profiler_lock():
     """A collection that starts while the host profiler holds its lock (its
     snapshot allocates under it) runs the profiler's gc callback on the

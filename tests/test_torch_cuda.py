@@ -1,9 +1,11 @@
 """The CUDA kernels on a card: each against its plain twin, the router on
-the card against the same router on the CPU, the port's broker with
-every batch on the card against the ``DefaultRouter`` oracle, and its
-retained replay through the retained-scan kernels against ``RetainTree``,
-a broker whose retainer plugin loads its store into the card's retained
-table, and ``--workers 2 --router xla``: two broker processes on one card.
+the card against the same router on the CPU, each hand-selected matcher
+mode (unfused, topk, segmented) against the same mode on the CPU, the
+port's broker with every batch on the card against the ``DefaultRouter``
+oracle, and its retained replay through the retained-scan kernels
+against ``RetainTree``, a broker whose retainer plugin loads its store
+into the card's retained table, and ``--workers 2 --router xla``: two
+broker processes on one card.
 
 This file imports nothing of JAX, so it also runs where JAX is not
 installed: ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
@@ -153,6 +155,55 @@ def test_router_on_cuda_equals_cpu(cuda, packed, monkeypatch):
     assert all(np.array_equal(g, w) for g, w in zip(got, want))
     m = routers[0].matcher
     assert (m.full_uploads, m.delta_uploads) == (1, 1)
+
+
+MODES = {
+    "unfused": {"RMQTT_FUSED": "0"},
+    "topk": {"RMQTT_COMPACT": "topk"},
+    "segmented_fused": {"RMQTT_SEG_BYTES": "8192"},
+    "segmented_unfused": {"RMQTT_SEG_BYTES": "8192", "RMQTT_FUSED": "0"},
+    "segmented_legacy": {"RMQTT_SEG_BYTES": "8192", "RMQTT_PACKED": "0"},
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(MODES))
+def test_matcher_modes_on_cuda_equal_cpu(cuda, mode, monkeypatch):
+    """Each hand-selected matcher mode on the card (the words kernels, the
+    compactions and segment scatters as torch ops) equals the same matcher
+    on the CPU, on a batch big enough for the NC split and on small ones,
+    before and after churn (a delta upload on the card, into the segments
+    when segmented)."""
+    for k, v in MODES[mode].items():
+        monkeypatch.setenv(k, v)
+    tables = [TP.PartitionedTable(), TP.PartitionedTable()]
+    rng = random.Random(3)
+    filters = gen_mixed(rng, 2000)
+    for t in tables:
+        for f in filters:
+            t.add(f)
+        t.compact()
+    ms = [TP.PartitionedMatcher(tables[0], device=cuda),
+          TP.PartitionedMatcher(tables[1], device="cpu")]
+    topics = gen_topics_uniform(rng, 1100)
+    counter = MW.match_words_legacy if "legacy" in mode else MW.match_words_packed
+    for batch in (topics, topics[:1], topics[:8]):
+        n0 = counter.launches
+        got, want = (m.match(batch) for m in ms)
+        assert counter.launches > n0
+        assert [g.tolist() for g in got] == [w.tolist() for w in want]
+    assert sum(len(w) for w in ms[1].match(topics)) > 1000
+    seg = "SEG_BYTES" in str(MODES[mode])
+    assert (ms[0]._dev.segments is not None) == seg
+    assert ms[0].hbm_breakdown()["segments"] == (len(ms[0]._dev.segments) if seg else 0)
+    for t in tables:
+        for fid in range(300):
+            t.remove(fid)
+        for f in gen_mixed(random.Random(2), 300):
+            t.add(f)
+    got, want = (m.match(topics) for m in ms)
+    assert [g.tolist() for g in got] == [w.tolist() for w in want]
+    assert (ms[0].full_uploads, ms[0].delta_uploads) == (1, 1)
 
 
 @pytest.mark.cuda

@@ -1,9 +1,10 @@
 """The port's default host path around the kernels, against the JAX package
 on the CPU: the native topic encoder (``runtime.NativeEncoder`` behind
 ``PartitionedTable._encode_native``) equals the JAX table's native encode
-and the port's ``_encode_py``; the matcher refuses the JAX knobs it does
-not run; ``RMQTT_FETCH_TIMEOUT`` turns a wedged copy into ``TimeoutError``;
-the CUDA probe refuses instead of hanging or falling back to the CPU; and
+and the port's ``_encode_py``; the matcher refuses ``RMQTT_PALLAS=0`` and
+starts the other hand-selected modes as the JAX matcher does;
+``RMQTT_FETCH_TIMEOUT`` turns a wedged copy into ``TimeoutError``; the CUDA
+probe refuses instead of hanging or falling back to the CPU; and
 the matcher's device-profiler seams give the JAX matcher's dispatch
 records and upload notes on the same batches."""
 
@@ -177,21 +178,39 @@ def test_small_cache_cap_never_aliases_groups():
         assert len(rows) > 4  # the batch alone outgrows the cap
 
 
-@pytest.mark.parametrize("name,value,refused", [
+@pytest.mark.parametrize("name,value,hand_selected", [
     ("RMQTT_COMPACT", "topk", True),
     ("RMQTT_FUSED", "0", True),
     ("RMQTT_SEG_BYTES", str(256 << 20), True),
     ("RMQTT_PALLAS", "0", True),
     ("RMQTT_COMPACT", "global", False),
 ])
-def test_unported_matcher_knobs_refuse(monkeypatch, name, value, refused):
+def test_unported_matcher_knobs_refuse(monkeypatch, name, value, hand_selected):
+    """Of the JAX matcher's knobs that select a mode by hand, only
+    ``RMQTT_PALLAS=0`` still refuses (the port has no verify-and-fall-back);
+    ``RMQTT_COMPACT=topk``, ``RMQTT_FUSED=0`` and ``RMQTT_SEG_BYTES`` start
+    a matcher whose ``match`` equals the JAX matcher's under the same
+    environment. The default ``global`` starts as before."""
     monkeypatch.setenv(name, value)
-    if refused:
+    if name == "RMQTT_PALLAS":
         with pytest.raises(NotImplementedError, match=name):
             TP.PartitionedMatcher(TP.PartitionedTable(), device="cpu")
-    else:
+    elif not hand_selected:
         assert TP.PartitionedMatcher(TP.PartitionedTable(), device="cpu").match(
             ["a/b"])[0].size == 0
+    else:
+        rng = random.Random(4)
+        jt, tt = JP.PartitionedTable(), TP.PartitionedTable()
+        for f in gen_mixed(rng, 300):
+            assert jt.add(f) == tt.add(f)
+        jm, tm = JP.PartitionedMatcher(jt), TP.PartitionedMatcher(tt, device="cpu")
+        topics = gen_topics_uniform(rng, 40)
+        got, want = tm.match(topics), jm.match(topics)
+        assert [g.tolist() for g in got] == [w.tolist() for w in want]
+        assert sum(len(w) for w in want) > 0
+        # the JAX matcher's None latches True after its verify race; the
+        # port has none and stays None (it runs fused all the same)
+        assert tm._fused is (None if name == "RMQTT_SEG_BYTES" else False)
 
 
 class _Wedged:
