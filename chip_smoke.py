@@ -7,9 +7,10 @@
 Phases, each of which fails the run (nonzero exit, no result line):
 
 1. device — requires CUDA; prints the card's name and power limit;
-2. build — compiles ``rmqtt_tpu_torch/csrc/*.cu`` (the match-words and the
-   retained-scan kernels) with one nvcc call and prints the build time and
-   the ptxas register / shared-memory / spill lines;
+2. build — compiles ``rmqtt_tpu_torch/csrc/*.cu`` (the match-words, the
+   retained-scan and the dense full-scan kernels) with one nvcc call and
+   prints the build time and the ptxas register / shared-memory / spill
+   lines;
 3. kernels — each match-words kernel against its plain PyTorch twin
    (``torch.equal``) at cfg3's shapes (B=16384, NC=32) on the real cfg3
    table and on random tiles, plus edge cases (odd B, NC=1, padded topics,
@@ -58,14 +59,43 @@ Phases, each of which fails the run (nonzero exit, no result line):
    (``run_retained``'s pattern, 8 rounds), and publish topics/s there;
 5. the same topics through a ``TorchRouter`` on legacy tiles
    (``RMQTT_PACKED=0``), equal to phase 4's results;
-4m. the matcher's hand-selected modes, after phase 5, each a
+3d. the dense full-scan kernels, after phase 5 — ``dense_match_packed``
+   and ``dense_match_retained`` against their plain twins
+   (``torch.equal``) on the whole dense tables of 4d (1,024 topics against
+   the 1M filters' 2^20 rows; the 64-filter batch against the 2^20 rows of
+   cfg5's retained draws) and on ``bench/dense_cases.py``'s
+   ``DENSE_CASES`` (B = 1 and 3, a capacity of 1,024, two blocks of
+   topics, L = 9, 20 and 40, padded topics and filters, ``$SYS`` rows and
+   topics against ``+``/``#``-first filters, a bare ``#``, ``+/#``, blank
+   levels); the forward timed at B = 16,384 (its twin once, also held to
+   the kernel there), the inverse at the 64-filter batch, by CUDA events
+   and graph replay, beside the bounds;
+4d. ``TorchRouter(backend="dense")`` over the same 1M filters
+   (``RMQTT_HYBRID_MAX=0``): the 32,768 topics in batches of 16,384 (the
+   words path; it prints how many overflowed to the bitmap path), 64
+   batches of 1 and of 8 (the bitmap path), every topic's filters equal to
+   phase 4's; 2,000 removes + 2,000 adds as one delta upload, then a
+   2,048-topic sample equal to the router's native trie mirror, which took
+   the same churn; the dense ``RetainedScanner`` over a ``FilterTable`` of
+   cfg5's retained draws: the 512-filter mix in batches of 64, each
+   filter's topics equal to 4r's (rows mapped to the same topic list);
+   topics/s, scans/s and the dense kernels' launches;
+4s. the multi-device matchers over ``[cuda:0] x 2`` (one card standing in
+   for two: the code path, not multi-card scaling): ``ShardedMatcher`` at
+   fp = 2 on 4d's table, its assembled bitmap and counts equal to
+   ``DenseMatcher``'s; ``ShardedPartitionedMatcher`` at dp = 2 on phase 4's
+   table, fused, unfused and topk, the 32,768 topics equal to phase 4's
+   matcher, the legacy words launches counted; a ``TorchRouter(mesh=...)``
+   of 20,000 filters routing 4 batches of 512 equal to its native trie
+   mirror; the same over every card when there is more than one;
+4m. the matcher's hand-selected modes, after phase 4s, each a
    ``PartitionedMatcher`` built with its environment over phase 4's packed
    table or phase 5's legacy table: (a) the unfused global path
    (``RMQTT_FUSED=0``), (b) topk (``RMQTT_COMPACT=topk``), (c) fused on
    segments (``RMQTT_SEG_BYTES=2097152``: 4), (d) unfused on segments (4),
    (e) legacy on segments (``RMQTT_SEG_BYTES=8388608``: 3); each routes the
-   32,768 topics in batches of 16,384 twice (the NC split engages; the
-   first pass pays the full upload) and 64 batches of 1 and of 8, every
+   32,768 topics in batches of 16,384 once (the NC split engages; the
+   pass pays the full upload) and 64 batches of 1 and of 8, every
    topic equal to the reference router's matcher at the same table
    version, then takes 2,000 removes and 2,000 adds as one delta upload
    (into its segments) and routes the topics again, equal; it prints
@@ -150,9 +180,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
    plain twins, times beside the bound).
 
 Cut to fit the 1,200 s a run may take (PERF.md §4): 6a's and 6e's wave
-to 4,096 of the cfg3 topics (``--wave``; 8,192 before this slice), 6f's
-wave after the restart to 2,048 (``RECOVERY_WAVE``), 6g's wave to the
-same. The 1M filters and the 60,000 retained messages are not cut.
+to 4,096 of the cfg3 topics (``--wave``), 6f's wave after the restart to
+2,048 (``RECOVERY_WAVE``), 6g's wave to the same, 4m to one pass before
+its churn. The 1M filters and the 60,000
+retained messages are not cut.
 
 The tables and the oracles are built before the phases that use them, and
 the garbage collector is then frozen, as ``bench.py`` does for the same
@@ -183,6 +214,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from rmqtt_tpu_torch.bench.dense_cases import DENSE_CASES, as_tensors, make_dense_case
 from rmqtt_tpu_torch.bench.mqtt_load import (LoadClient, connect_and_subscribe,
                                              expected_deliveries, oracle_router,
                                              publish_wave)
@@ -200,15 +232,18 @@ from rmqtt_tpu_torch.bench.workloads import (gen_mixed, gen_retained_topics,
                                              gen_topics_uniform, retained_sub_filters)
 from rmqtt_tpu_torch.core.topic import match_filter, parse_shared
 from rmqtt_tpu_torch.core.trie import RetainTree, TopicTree
+from rmqtt_tpu_torch.ops import match as DM
 from rmqtt_tpu_torch.ops import match_words as MW
 from rmqtt_tpu_torch.ops import retained_part as RP
 from rmqtt_tpu_torch.ops._build import SOURCES, kernel_library
-from rmqtt_tpu_torch.ops.encode import PackedLayout
+from rmqtt_tpu_torch.ops.encode import FilterTable, PackedLayout
 from rmqtt_tpu_torch.ops import partitioned as PP
 from rmqtt_tpu_torch.ops.partitioned import PartitionedMatcher, split_buckets
+from rmqtt_tpu_torch.ops.retained import RetainedScanner
+from rmqtt_tpu_torch.parallel import ShardedMatcher, ShardedPartitionedMatcher, make_mesh
 from rmqtt_tpu_torch.router import Id, SubscriptionOptions, TorchRouter
 from rmqtt_tpu_torch.runtime import NativeEncoder
-from rmqtt_tpu_torch.utils.devfetch import set_fetch_timeout
+from rmqtt_tpu_torch.utils.devfetch import fetch, set_fetch_timeout
 
 SMALL_SET = 64  # tiles: 64 KB packed, 176 KB legacy int16 (an SM's L1 is 256 KB)
 KERNEL_SOURCE = {
@@ -216,12 +251,16 @@ KERNEL_SOURCE = {
     "match_words_legacy": "rmqtt_tpu_torch/csrc/match_words.cu",
     "retained_scan_gather": "rmqtt_tpu_torch/csrc/retained_scan.cu",
     "retained_scan_full": "rmqtt_tpu_torch/csrc/retained_scan.cu",
+    "dense_match_packed": "rmqtt_tpu_torch/csrc/dense_match.cu",
+    "dense_match_retained": "rmqtt_tpu_torch/csrc/dense_match.cu",
 }
 REPLACES = {
     "match_words_packed": "rmqtt_tpu/ops/pallas_match.py:288",
     "match_words_legacy": "rmqtt_tpu/ops/pallas_match.py:141",
     "retained_scan_gather": "rmqtt_tpu/ops/retained_part.py:181",
     "retained_scan_full": "rmqtt_tpu/ops/retained_part.py:234",
+    "dense_match_packed": "rmqtt_tpu/ops/match.py:82",
+    "dense_match_retained": "rmqtt_tpu/ops/match.py:176",
 }
 
 
@@ -612,6 +651,7 @@ def phase_retained_scanner(table, scanner, tree, filters, router, pub_topics) ->
     scan_only = time.perf_counter() - t1
     out["launches"] = {"retained_scan_gather": RP.retained_scan_gather.launches,
                        "retained_scan_full": RP.retained_scan_full.launches}
+    out["results"] = kern_res  # each filter's fids, for 4d's dense scanner
     out.update(publish_topics_per_s=RETAINED_ROUNDS * pb / total,
                scans_per_s_interleaved=RETAINED_ROUNDS * sb / total,
                scans_per_s_alone=RETAINED_ROUNDS * sb / scan_only)
@@ -1024,11 +1064,10 @@ def phase_modes(packed_router: TorchRouter, legacy_router: TorchRouter, filters,
         ref_bytes = ref.matcher.hbm_breakdown()["tiles_bytes"]
         with environment(env):  # the matcher reads it when it is built
             m = PartitionedMatcher(ref.table, device=ref.matcher.device)
-        # the first pass pays the full upload and, where a churn before it
-        # dropped candidate-cache entries, the cold encode; the second is warm
-        tps0, n0 = _mode_pass(m, ref, topics, batch, label)
-        tps, n = _mode_pass(m, ref, topics, batch, label)
-        n += n0
+        # the pass pays the full upload and, where a churn before it dropped
+        # candidate-cache entries, the cold encode (one pass, to fit the
+        # run's time: PERF.md §4)
+        tps0, n = _mode_pass(m, ref, topics, batch, label)
         small = 0
         for size in (1, 8):
             for k in range(MODE_SMALL_BATCHES):
@@ -1056,11 +1095,11 @@ def phase_modes(packed_router: TorchRouter, legacy_router: TorchRouter, filters,
         if launches <= 0:
             raise AssertionError(f"4m {label}: no words kernel launched")
         out["launches_" + kind] += launches
-        out["modes"][label] = {"topics_per_s": [tps0, tps, tps2], "launches": launches,
+        out["modes"][label] = {"topics_per_s": [tps0, tps2], "launches": launches,
                                "hbm": hbm, "fused_batches": m.fused_batches}
         log(f"    ({label}) {'; '.join(f'{k}={v}' for k, v in env.items())}: "
             f"{len(topics)} topics in batches of {batch} at {tps0:.1f} topics/s "
-            f"(the full upload), {tps:.1f} warm, {tps2:.1f} after -{churn} "
+            f"(the full upload), {tps2:.1f} after -{churn} "
             f"+{churn} filters (1 delta upload, no full; the churn's dropped "
             f"candidate-cache entries encode cold); {MODE_SMALL_BATCHES} batches of 1 and of 8; all equal to "
             f"the {kind} reference router; words-kernel launches {launches} "
@@ -1114,6 +1153,338 @@ def _time_mode_programs(router, topics, batch: int, card: str) -> dict:
         log(f"    {name}: {r['ms']:.4f} ms by CUDA events, bound {r['bound_ms']:.5f} ms "
             f"by bytes; library {r['library_ms'] if not isinstance(r['library_ms'], float) else round(r['library_ms'], 4)}; "
             f"{ {k2: v for k2, v in r.items() if k2 not in ('ms', 'bound_ms', 'library_ms')} }; {card}")
+    return out
+
+
+# ------------------------------------------------------ phase 3d, 4d, 4s
+DENSE_SAMPLE = 1_024  # 3d: topics against the whole dense table
+DENSE_SMALL_BATCHES = 64  # 4d: batches of 1 and of 8 after the full pass
+MESH_FILTERS = 20_000  # 4s: filters of the TorchRouter(mesh=...) check
+DENSE_PAIRS = {
+    "dense_match_packed": (DM.match_packed, DM.match_packed_plain),
+    "dense_match_retained": (DM.match_retained, DM.match_retained_plain),
+}
+
+
+def dense_bound_ms(rows: int, lvl: int, b: int):
+    """Least time for one dense scan of ``b`` topics (filters) against
+    ``rows`` rows of ``lvl`` levels: every (topic, row) pair is tested, at
+    ~(2*lvl+6) integer operations a test (the words kernels' convention),
+    whatever the data; the bytes are the table (tokens and ~10 bytes of
+    metadata a row) and the batch read once and the bitmap written once.
+    → (bound ms with the operations at the FP32 rate, "bytes" or
+    "operations", the same at the integer rate)."""
+    nbytes = rows * (lvl * 4 + 10) + b * (lvl * 4 + 10) + b * rows // 8
+    ops = b * rows * (2 * lvl + 6)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / SCALAR_OPS_PER_S * 1e3
+    t_int = ops / INT_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"),
+            max(t_bytes, t_int))
+
+
+def build_dense(filters, retained_topics, dev):
+    """4d's router: ``TorchRouter(backend="dense")`` over the 1M filters
+    with every batch on the card; the dense ``FilterTable`` of cfg5's
+    retained draws and its ``RetainedScanner``; ``perm`` maps a dense
+    retained row to the topic's index in ``retained_topics`` (4r's fid)."""
+    t0 = time.perf_counter()
+    with environment({"RMQTT_HYBRID_MAX": "0"}):
+        router = TorchRouter(device=dev, backend="dense")
+    opts = SubscriptionOptions()
+    for i, f in enumerate(filters):
+        router.add(f, Id(1, f"c{i}"), opts)
+    router.matcher._refresh()
+    t1 = time.perf_counter()
+    rtable = FilterTable()
+    perm = np.empty(len(retained_topics), dtype=np.int64)
+    for i, t in enumerate(retained_topics):
+        perm[rtable.add(t)] = i
+    scanner = RetainedScanner(rtable, device=dev)
+    scanner._refresh()
+    log(f"    dense table: {len(filters)} filters, capacity {router.table.capacity} x "
+        f"{router.table.max_levels} levels, built + uploaded in {t1 - t0:.2f}s "
+        f"({router.matcher.upload_bytes} B); retained FilterTable: "
+        f"{len(retained_topics)} topics, capacity {rtable.capacity} x "
+        f"{rtable.max_levels}, built + uploaded in {time.perf_counter() - t1:.2f}s")
+    return router, scanner, perm
+
+
+def phase_dense_kernels(router, scanner, topics, sub_filters, batch: int, dev) -> dict:
+    """3d: both dense kernels against their twins on the whole 1M-row tables
+    (1,024 topics; the 64-filter batch) and on ``DENSE_CASES``; timed at
+    B = ``batch`` (forward) and at the 64-filter batch (inverse) by CUDA
+    events and graph replay, beside the twin's time and the bounds."""
+    log("[3d] the dense full-scan kernels against their plain twins")
+    stats = {name: {} for name in DENSE_PAIRS}
+    fwd_rows = router.matcher._refresh()
+    t = router.table
+    real = {
+        "dense_match_packed": (*fwd_rows, *as_tensors(
+            t.encode_topics(topics[:DENSE_SAMPLE]), dev)),
+        "dense_match_retained": (*scanner._refresh(), *as_tensors(
+            scanner.table.encode_filters(sub_filters[:RETAINED_BATCH]), dev)),
+    }
+    for name, args in real.items():
+        kern, plain = DENSE_PAIRS[name]
+        _compare(f"{name} whole table ({args[0].shape[0]} rows x {args[0].shape[1]} "
+                 f"levels), B={args[-1].shape[0]}", kern, plain, args, stats[name])
+    for case in DENSE_CASES:
+        inp = make_dense_case(case)
+        for name, arrs in (("dense_match_packed", inp.forward),
+                           ("dense_match_retained", inp.inverse)):
+            _compare(f"{name} {case.name}", *DENSE_PAIRS[name], as_tensors(arrs, dev),
+                     stats[name])
+    # timings: the forward at the words path's batch, the inverse at the
+    # scanner's; the forward's twin, timed once, is also held to the kernel
+    timed_args = {
+        "dense_match_packed": (*fwd_rows, *as_tensors(t.encode_topics(topics[:batch]), dev)),
+        "dense_match_retained": real["dense_match_retained"],
+    }
+    for name, args in timed_args.items():
+        kern, plain = DENSE_PAIRS[name]
+        s = stats[name]
+        b = args[-1].shape[0]
+        big = name == "dense_match_packed"
+        s["ms"] = time_cuda(lambda: kern(*args), reps=5 if big else 50, warmup=1)
+        s["graph_ms"] = time_graph(lambda: kern(*args), reps=2 if big else 10,
+                                   per_graph=2 if big else 20)
+        if big:
+            torch.cuda.synchronize()
+            ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            ev0.record()
+            want = plain(*args)
+            ev1.record()
+            torch.cuda.synchronize()
+            s["plain_ms"] = ev0.elapsed_time(ev1)
+            got = kern(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"{name}: kernel differs from the twin at B={b}")
+            s["cases"] += 1
+            del got, want
+        else:
+            s["plain_ms"] = time_cuda(lambda: plain(*args), reps=3, warmup=1)
+        rows, lvl = args[0].shape
+        s["bound_ms"], s["bound_by"], s["bound_int_ms"] = dense_bound_ms(rows, lvl, b)
+        s["shape"] = [b, rows, lvl]
+        log(f"    {name}: {s['ms']:.4f} ms at B={b} x {rows} rows x {lvl} levels "
+            f"({s['graph_ms']:.4f} ms by graph replay), plain {s['plain_ms']:.3f} ms, "
+            f"bound {s['bound_ms']:.4f} ms by {s['bound_by']} with operations at the "
+            f"FP32 rate, {s['bound_int_ms']:.4f} ms at the integer rate; "
+            f"{s['cases']} equal cases")
+    stats["programs"] = _time_dense_programs(router, topics, batch, dev)
+    torch.cuda.empty_cache()
+    log(f"    {card_line()}")
+    return stats
+
+
+def _time_dense_programs(router, topics, batch: int, dev) -> dict:
+    """The torch ops over the dense bitmap by CUDA events: ``match_words``
+    at the words path's shape (B = ``batch``), beside ``torch.topk`` alone
+    on the same keys, and ``match_compact`` at 1,024 topics, each beside its
+    bound by bytes (the bitmap read once, the outputs written once)."""
+    m = router.matcher
+    out = {}
+    n0 = DM.match_packed.launches
+    for name, b in (("match_words", batch), ("match_compact", DENSE_SAMPLE)):
+        packed = m.match_encoded(*router.table.encode_topics(topics[:b]))
+        bw, w = packed.shape
+        kw = min(m.max_matches, w)
+        if name == "match_words":
+            ms = time_cuda(lambda: DM.match_words(packed, m.max_matches), reps=5, warmup=1)
+            rank = w - torch.arange(w, dtype=torch.int32, device=dev)
+            val = torch.where(packed != 0, rank, 0)
+            lib = time_cuda(lambda: torch.topk(val, kw, dim=1), reps=5, warmup=1)
+            del val
+            wrote = bw * (2 * kw + 1) * 4
+        else:
+            ms = time_cuda(lambda: DM.match_compact(packed, m.chunk, m.max_matches),
+                           reps=3, warmup=1)
+            lib = None
+            wrote = bw * (m.max_matches + 1) * 4
+        out[name] = {"ms": ms, "library_ms": lib, "shape": [bw, w],
+                     "bound_ms": (packed.numel() * 4 + wrote) / HBM_BYTES_PER_S * 1e3}
+        del packed
+        log(f"    {name}: {ms:.4f} ms at [{bw}, {w}] words by CUDA events, bound "
+            f"{out[name]['bound_ms']:.4f} ms by bytes; library "
+            f"{'torch.topk %.4f ms' % lib if lib is not None else 'none'}")
+    DM.match_packed.launches = n0  # timing inputs, not a path's launches
+    return out
+
+
+def _dense_pass(router, topics, batch: int):
+    """``topics`` through the router's ``matches_batch_raw`` in batches of
+    ``batch`` → (matched filter lists, seconds)."""
+    out = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(0, len(topics), batch):
+        out.extend(_routed_filters(raw) for raw in
+                   router.matches_batch_raw([(None, t) for t in topics[i:i + batch]]))
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_dense(router, scanner, perm, filters, topics, batch: int, want_filters,
+                churn: int, seed: int, sub_filters, retained_res) -> dict:
+    """4d: ``TorchRouter(backend="dense")`` over the 1M filters (words path
+    at ``batch``, bitmap path at 1 and 8), a churn as one delta upload, and
+    the dense ``RetainedScanner`` over cfg5's retained draws → launches."""
+    log("[4d] TorchRouter(backend='dense') over the 1M filters, and the dense "
+        "RetainedScanner")
+    m = router.matcher
+    n = len(topics)
+    DM.match_packed.launches = DM.match_retained.launches = 0
+    got, secs = _dense_pass(router, topics, batch)
+    over = sum(len(g) > m.max_matches for g in got)
+    for i, (g, w) in enumerate(zip(got, want_filters)):
+        if g != w:
+            raise AssertionError(f"4d: dense router differs from phase 4 at {topics[i]!r}: "
+                                 f"{len(g)} vs {len(w)} filters")
+    words_launches = DM.match_packed.launches
+    words_tps = n / secs
+    log(f"    {n} topics in batches of {batch} (words path): {secs * 1e3:.3f} ms = "
+        f"{n / secs:.1f} topics/s; {over} topics overflowed the {m.max_matches} "
+        f"words to the bitmap path; {words_launches} launches; all equal to phase 4's "
+        f"({sum(len(g) for g in got)} routes)")
+    del got
+    small_t = {}
+    for size in (1, 8):
+        bts = [topics[k * size:(k + 1) * size] for k in range(DENSE_SMALL_BATCHES)]
+        res, secs = _dense_pass(router, [t for bt in bts for t in bt], size)
+        idx = [i for k in range(DENSE_SMALL_BATCHES) for i in range(k * size, (k + 1) * size)]
+        if res != [want_filters[i] for i in idx]:
+            raise AssertionError(f"4d: batches of {size} differ from phase 4")
+        small_t[size] = len(res) / secs
+    log(f"    {DENSE_SMALL_BATCHES} batches of 1 and of 8 (bitmap path), equal to "
+        f"phase 4's: {small_t[1]:.1f} / {small_t[8]:.1f} topics/s")
+    # churn: removes and adds through the router, one delta upload
+    rng = random.Random(seed + 10)
+    full0, delta0 = m.full_uploads, m.delta_uploads
+    _churn_router(router, filters, churn, rng, "d")
+    sample = sorted(rng.sample(range(n), min(2_048, n)))
+    stopics = [topics[i] for i in sample]
+    got, secs = _dense_pass(router, stopics, len(stopics))
+    if (m.full_uploads, m.delta_uploads) != (full0, delta0 + 1):
+        raise AssertionError(f"4d: the churn took {m.full_uploads - full0} full and "
+                             f"{m.delta_uploads - delta0} delta uploads, not one delta")
+    want = [_routed_filters(raw) for raw in
+            router.host_matches_batch_raw([(None, t) for t in stopics])]
+    if got != want:
+        raise AssertionError("4d: after the churn the dense router differs from its "
+                             "host trie mirror (the same churn)")
+    log(f"    churn -{churn} +{churn}: one delta upload ({m.upload_bytes} B uploaded in "
+        f"all); {len(stopics)} topics at {len(stopics) / secs:.1f} topics/s equal to the "
+        f"native trie mirror through the same churn")
+    # the dense retained scan: every filter of the mix against 4r's results,
+    # the rows mapped to the same topic list
+    t0 = time.perf_counter()
+    res = []
+    for lo in range(0, len(sub_filters), RETAINED_BATCH):
+        res.extend(scanner.scan(sub_filters[lo:lo + RETAINED_BATCH]))
+    ssecs = time.perf_counter() - t0
+    for f, g, w in zip(sub_filters, res, retained_res):
+        if not np.array_equal(np.sort(perm[g]), w):
+            raise AssertionError(f"4d: dense retained scan of {f!r}: {len(g)} topics, "
+                                 f"4r {len(w)}")
+    out = {"topics_per_s": words_tps, "small_topics_per_s": small_t,
+           "churn_topics_per_s": len(stopics) / secs, "overflowed": over,
+           "scans_per_s": len(sub_filters) / ssecs,
+           "launches_packed": DM.match_packed.launches,
+           "launches_retained": DM.match_retained.launches}
+    log(f"    dense RetainedScanner: {len(sub_filters)} filters in batches of "
+        f"{RETAINED_BATCH}, {out['scans_per_s']:.1f} scans/s, every filter's topics "
+        f"equal to 4r's ({sum(len(r) for r in res)} topics)")
+    log(f"    launches: dense_match_packed {out['launches_packed']}, "
+        f"dense_match_retained {out['launches_retained']}; {card_line()}")
+    return out
+
+
+def _mesh_checks(devs, dense_router, packed_router, topics, batch: int, filters,
+                 what: str) -> dict:
+    """4s over one device list: ``ShardedMatcher`` at fp = len(devs) against
+    ``DenseMatcher``; ``ShardedPartitionedMatcher`` at dp = len(devs) in each
+    compaction mode against phase 4's matcher; a ``TorchRouter(mesh=...)``."""
+    out = {"launches_packed": 0, "launches_legacy": 0, "modes": {}}
+    nd = len(devs)
+    dt = dense_router.table
+    ttok, tlen, td = dt.encode_topics(topics[:DENSE_SAMPLE])
+    n0 = DM.match_packed.launches
+    sm = ShardedMatcher(dt, make_mesh(devs, dp=1, fp=nd))
+    packed, counts = sm.assemble(sm.match_encoded(ttok, tlen, td))
+    out["launches_packed"] = DM.match_packed.launches - n0
+    out["sharded_dense_ms"] = time_cuda(lambda: sm.match_encoded(ttok, tlen, td), reps=5)
+    DM.match_packed.launches = n0 + out["launches_packed"]  # timing, not the path
+    want = fetch(dense_router.matcher.match_encoded(ttok, tlen, td))
+    if not np.array_equal(packed, want):
+        raise AssertionError(f"4s {what}: ShardedMatcher's bitmap differs from DenseMatcher's")
+    if not np.array_equal(counts, np.unpackbits(want.view(np.uint8), axis=1).sum(1)):
+        raise AssertionError(f"4s {what}: ShardedMatcher's counts differ")
+    del packed, want
+    log(f"    {what}: ShardedMatcher (dp=1, fp={nd}) on 4d's table, B={len(ttok)}: "
+        f"bitmap and counts equal to DenseMatcher's ({int(counts.sum())} matches); "
+        f"match_encoded {out['sharded_dense_ms']:.4f} ms by CUDA events (the shards' "
+        f"kernels, popcounts and the count sum)")
+    ref = packed_router.matcher
+    mesh = make_mesh(devs, dp=nd)
+    for mode, kw in (("fused", {}), ("unfused", {}), ("topk", {"compact": "topk"})):
+        spm = ShardedPartitionedMatcher(packed_router.table, mesh, **kw)
+        if mode == "unfused":
+            spm._fused = False
+        n0 = MW.match_words_legacy.launches
+        want = [r for i in range(0, len(topics), batch)
+                for r in ref.match(topics[i:i + batch])]
+        tps = []
+        for _ in range(2):  # the first pass pays the replicated full upload
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = [r for i in range(0, len(topics), batch)
+                   for r in spm.match(topics[i:i + batch])]
+            tps.append(len(topics) / (time.perf_counter() - t0))
+            _same_fids(f"4s {what} {mode}", topics, got, want)
+        launches = MW.match_words_legacy.launches - n0
+        out["launches_legacy"] += launches
+        out["modes"][mode] = tps
+        log(f"    {what}: ShardedPartitionedMatcher (dp={nd}) {mode}: {len(topics)} "
+            f"topics in batches of {batch} at {tps[0]:.1f} topics/s (the full upload), "
+            f"{tps[1]:.1f} warm, equal to phase 4's matcher; {launches} legacy words "
+            f"launches; fused batches {spm.fused_batches}; hbm {spm.hbm_breakdown()}")
+        del spm
+    with environment({"RMQTT_HYBRID_MAX": "0"}):
+        mr = TorchRouter(mesh=mesh)
+    opts = SubscriptionOptions()
+    for i, f in enumerate(filters[:MESH_FILTERS]):
+        mr.add(f, Id(1, f"c{i}"), opts)
+    n0 = MW.match_words_legacy.launches
+    for lo in range(0, 4 * 512, 512):
+        items = [(None, t) for t in topics[lo:lo + 512]]
+        got = [_routed_filters(raw) for raw in mr.matches_batch_raw(items)]
+        want = [_routed_filters(raw) for raw in mr.host_matches_batch_raw(items)]
+        if got != want:
+            raise AssertionError(f"4s {what}: TorchRouter(mesh=...) differs from its "
+                                 "host trie mirror")
+    out["launches_legacy"] += MW.match_words_legacy.launches - n0
+    log(f"    {what}: TorchRouter(mesh=make_mesh(dp={nd})) with {MESH_FILTERS} filters: "
+        f"4 batches of 512 equal to its native trie mirror "
+        f"({MW.match_words_legacy.launches - n0} launches)")
+    return out
+
+
+def phase_sharded(dense_router, packed_router, topics, batch: int, filters, dev) -> dict:
+    """4s: the multi-device matchers over ``[dev] * 2`` (one card standing in
+    for two), and over every card when there is more than one."""
+    log("[4s] the multi-device matchers over a list of devices")
+    log("    one card standing in for two shows the code path, not multi-card "
+        "scaling")
+    out = _mesh_checks([dev, dev], dense_router, packed_router, topics, batch, filters,
+                       "[cuda:0] x 2")
+    ncards = torch.cuda.device_count()
+    if ncards > 1:
+        out["all_cards"] = _mesh_checks(
+            [torch.device("cuda", i) for i in range(ncards)], dense_router,
+            packed_router, topics, batch, filters, f"{ncards} cards")
+    log(f"    {card_line()}")
     return out
 
 
@@ -2713,7 +3084,24 @@ def main(argv=None) -> int:
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} was never launched on its path")
+
+    # the dense backend (3d, 4d) and the multi-device matchers (4s)
+    dense_router, dscanner, perm = timed("dense tables", build_dense, filters,
+                                         retained_topics, dev)
+    gc.collect()
+    gc.freeze()
+    dstats = timed("3d", phase_dense_kernels, dense_router, dscanner, topics,
+                   sub_filters, args.batch, dev)
+    dense_programs = dstats.pop("programs")
+    stats.update(dstats)
+    dense = timed("4d", phase_dense, dense_router, dscanner, perm, filters, topics,
+                  args.batch, want_filters, args.churn, args.seed, sub_filters,
+                  retained.pop("results"))
     del want_filters
+    sharded = timed("4s", phase_sharded, dense_router, packed_router, topics,
+                    args.batch, filters, dev)
+    del dense_router, dscanner, perm
+    torch.cuda.empty_cache()
     MW.match_words_packed.launches = 0
     MW.match_words_legacy.launches = 0
     modes = timed("4m", phase_modes, packed_router, legacy_router, filters, topics,
@@ -2743,6 +3131,22 @@ def main(argv=None) -> int:
                                "router modes, phase 4m": modes["launches_legacy"]},
     }
     by_path["match_words_packed"]["router modes, phase 4m"] = modes["launches_packed"]
+    by_path["match_words_legacy"]["sharded partitioned matcher and mesh router, "
+                                  "phase 4s"] = sharded["launches_legacy"]
+    by_path["dense_match_packed"] = {"dense router, phase 4d": dense["launches_packed"],
+                                     "sharded dense matcher, phase 4s":
+                                     sharded["launches_packed"]}
+    by_path["dense_match_retained"] = {"dense retained scanner, phase 4d":
+                                       dense["launches_retained"]}
+    if "all_cards" in sharded:
+        by_path["match_words_legacy"]["mesh over every card, phase 4s"] = \
+            sharded["all_cards"]["launches_legacy"]
+        by_path["dense_match_packed"]["sharded dense matcher over every card, phase 4s"] = \
+            sharded["all_cards"]["launches_packed"]
+    for name, paths in by_path.items():
+        for path, n in paths.items():
+            if n <= 0 and ("4d" in path or "4s" in path):
+                raise AssertionError(f"{name} was never launched on its path {path}")
     for mode in ("gather", "full"):
         name = f"retained_scan_{mode}"
         by_path[name] = {"scanner at 1M, phase 4r": launches[name],
@@ -2770,7 +3174,7 @@ def main(argv=None) -> int:
             row.update(small_set_ms=s["small_set_ms"],
                        bucket_ms_per_batch=sum(ms for *_, ms in s["bucket_ms"]))
         else:
-            row.update(shape=s["shape"], one_filter=s["one_filter"])
+            row.update({k: s[k] for k in ("shape", "one_filter") if k in s})
         kernels.append(row)
     log(f"[8] kernels (total run {time.perf_counter() - t_start:.1f}s; seconds by "
         f"phase {({k: round(v, 1) for k, v in PHASE_S.items()})}); retained "
@@ -2778,8 +3182,16 @@ def main(argv=None) -> int:
         f"{retained['scans_per_s_interleaved']:.1f} with "
         f"{retained['publish_topics_per_s']:.1f} publish topics/s; encode ms per "
         f"32,768 topics native / Python (warm) {encode['native_warm_ms']:.3f} / "
-        f"{encode['python_warm_ms']:.3f}; 4m topics/s first / warm / after the churn "
-        f"{ {k[0]: [round(x, 1) for x in v['topics_per_s']] for k, v in modes['modes'].items()} }; 6a deliveries/s {broker['deliveries_per_s']:.1f} "
+        f"{encode['python_warm_ms']:.3f}; 4m topics/s first / after the churn "
+        f"{ {k[0]: [round(x, 1) for x in v['topics_per_s']] for k, v in modes['modes'].items()} }; "
+        f"4d dense router {dense['topics_per_s']:.1f} topics/s at {args.batch} a batch "
+        f"({dense['overflowed']} overflowed), "
+        f"{ {k: round(v, 1) for k, v in dense['small_topics_per_s'].items()} } at 1 and 8, "
+        f"dense retained {dense['scans_per_s']:.1f} scans/s; 3d match_words / "
+        f"match_compact ms {dense_programs['match_words']['ms']:.4f} / "
+        f"{dense_programs['match_compact']['ms']:.4f}; 4s topics/s first / warm "
+        f"{ {k: [round(x, 1) for x in v] for k, v in sharded['modes'].items()} }; "
+        f"6a deliveries/s {broker['deliveries_per_s']:.1f} "
         f"with the profiler seams live; 6e deliveries/s {fabric['deliveries_per_s']:.1f} "
         f"through {FABRIC_WORKERS} fabric workers; 6f recovery "
         f"{recovered['recovery_ms']:.3f} ms, restart to listening "

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels.
 
 One ``nvcc`` call compiles every source of ``rmqtt_tpu_torch/csrc/``
-(``match_words.cu``, ``retained_scan.cu``) into one shared library with a
+(``match_words.cu``, ``retained_scan.cu``, ``dense_match.cu``) into one
+shared library with a
 plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a build
 takes seconds). The library lands in ``rmqtt_tpu_torch/_build/`` under a
 name keyed on a hash of the sources and the flags, so an edited source
@@ -23,7 +24,8 @@ from pathlib import Path
 from typing import Optional
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "match_words.cu", _PKG / "csrc" / "retained_scan.cu")
+SOURCES = (_PKG / "csrc" / "match_words.cu", _PKG / "csrc" / "retained_scan.cu",
+           _PKG / "csrc" / "dense_match.cu")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -49,6 +51,14 @@ _SIGNATURES = {
     # out, stream
     "launch_retained_scan_full": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P,
                                   _P),
+    # ftok, flen, fprefix, fhash, fwild, nrows, lvl, ttok, tlen, tdollar, b,
+    # out, stream
+    "launch_dense_match_packed": (_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I,
+                                  _P, _P),
+    # rtok, rlen, rdollar, nrows, lvl, ftok, flen, fprefix, fhash, fwild, b,
+    # out, stream
+    "launch_dense_match_retained": (_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I,
+                                    _P, _P),
 }
 
 
@@ -113,8 +123,8 @@ def _build(sources, so: Path, log_path: Path) -> tuple:
 
 def load_library(sources) -> KernelLibrary:
     """Build (once per hash of ``sources``) and load a library of the
-    kernels' C interface from ``sources`` (paths; every launcher of
-    ``_SIGNATURES`` among them). :func:`kernel_library` loads
+    kernels' C interface from ``sources`` (paths; the launchers of
+    ``_SIGNATURES`` that they define are bound). :func:`kernel_library` loads
     :data:`SOURCES`; a benchmark may load another version of a source
     beside it."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -132,7 +142,9 @@ def load_library(sources) -> KernelLibrary:
     except OSError as e:
         raise KernelError(f"cannot load {so}: {e}") from e
     for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
+        fn = getattr(lib, name, None)
+        if fn is None:  # a library of a subset of the sources
+            continue
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return KernelLibrary(lib=lib, path=so, log=log, build_s=secs)

@@ -9,11 +9,13 @@ expanded host-side to clients via the relations map — the kernel/host
 split the reference keeps between trie and ``AllRelationsMap``
 (router.rs:121-139).
 
-The port of the JAX package's ``XlaRouter`` with its partitioned backend on
-one device: the host trie mirror, the small-batch hybrid
-(``ops/hybrid.py``), the ``kernel.dispatch`` telemetry and the failover
-plane's seams (``broker/failover.py``). The dense backend and the
-multi-device mesh are not ported (ROADMAP Queue A items 11, 12).
+The port of the JAX package's ``XlaRouter``: the host trie mirror, the
+small-batch hybrid (``ops/hybrid.py``), the ``kernel.dispatch`` telemetry
+and the failover plane's seams (``broker/failover.py``) around one of three
+matchers: the partitioned matcher on one device (the default), the dense
+full-scan ``DenseMatcher`` (``backend="dense"``, ``ops/match.py``) or the
+partitioned matcher over a mesh of devices (``mesh``,
+``parallel/sharded.py``).
 """
 
 from __future__ import annotations
@@ -23,11 +25,15 @@ import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from rmqtt_tpu_torch.ops._build import kernel_library
+from rmqtt_tpu_torch.ops.encode import FilterTable
 from rmqtt_tpu_torch.ops.hybrid import AdaptiveHybrid
+from rmqtt_tpu_torch.ops.match import DenseMatcher
 from rmqtt_tpu_torch.ops.match_words import match_words_legacy, match_words_packed
 from rmqtt_tpu_torch.ops.partitioned import PartitionedMatcher, PartitionedTable
+from rmqtt_tpu_torch.parallel.sharded import ShardedPartitionedMatcher, make_mesh
 from rmqtt_tpu_torch.router.base import (
     ClientId,
     Id,
@@ -68,22 +74,53 @@ class TorchRouter(Router):
         self,
         shared_choice: Optional[SharedChoiceFn] = None,
         is_online: Callable[[ClientId], bool] = lambda cid: True,
-        table: Optional[PartitionedTable] = None,
+        table=None,
         device=None,
+        backend: str = "partitioned",
+        mesh="auto",
     ) -> None:
         """``device``: where the table and the matching live — the current
         CUDA device when None (raises without one), ``"cpu"`` for the plain
         PyTorch twins of the kernels (tests). With no device the card is
         first counted from a subprocess (``utils/cudaprobe.py``), so a
-        wedged card raises instead of hanging. On CUDA the words kernels
-        are built here, so a kernel that does not build refuses the start."""
-        if device is None:
+        wedged card raises instead of hanging. On CUDA the kernels are
+        built here, so a kernel that does not build refuses the start.
+
+        ``backend``: ``"partitioned"`` (a ``PartitionedTable``) or
+        ``"dense"`` (a ``FilterTable`` scanned whole by ``DenseMatcher``).
+        ``mesh``: a ``parallel.Mesh`` to run the partitioned matcher over
+        (batch sharded, table replicated; its devices are where the
+        matching lives, so no CUDA probe runs); ``"auto"`` uses every CUDA
+        device when the probe counts more than one and no device was given
+        (one card keeps the local matcher); ``None`` forces one device."""
+        explicit_mesh = mesh not in (None, "auto")
+        if explicit_mesh and (backend != "partitioned" or device is not None):
+            raise ValueError(
+                "mesh is only supported with backend='partitioned' and no "
+                "explicit device (use parallel.ShardedMatcher for dense)")
+        ncuda = 0
+        if device is None and not explicit_mesh:
             from rmqtt_tpu_torch.utils.cudaprobe import require_cuda
 
-            require_cuda()
-        self.table = table or PartitionedTable()
-        self.matcher = PartitionedMatcher(self.table, device=device)
-        if self.matcher.device.type == "cuda":
+            ncuda = require_cuda()
+        if backend == "partitioned":
+            self.table = table or PartitionedTable()
+            use_mesh = None if mesh == "auto" else mesh
+            if mesh == "auto" and device is None and ncuda > 1:
+                use_mesh = make_mesh([torch.device("cuda", i) for i in range(ncuda)],
+                                     dp=ncuda)
+            if use_mesh is not None:
+                self.matcher = ShardedPartitionedMatcher(self.table, use_mesh)
+            else:
+                self.matcher = PartitionedMatcher(self.table, device=device)
+        elif backend == "dense":
+            self.table = table or FilterTable()
+            self.matcher = DenseMatcher(self.table, device=device)
+        else:
+            raise ValueError(f"unknown backend {backend!r}")
+        self._devices = list(getattr(self.matcher, "devices", None)
+                             or [self.matcher.device])
+        if any(d.type == "cuda" for d in self._devices):
             kernel_library()
         self._relations = RelationsMap()
         self._fid_to_filter: Dict[int, str] = {}
@@ -228,8 +265,9 @@ class TorchRouter(Router):
         built at construction). ``RoutingService.start()`` calls it on a
         background thread."""
         m = self.matcher
-        m.prewarm(batch_sizes)
-        if m.device.type == "cuda":
+        if hasattr(m, "prewarm"):
+            m.prewarm(batch_sizes)
+        if any(d.type == "cuda" for d in self._devices):
             for s in sorted({int(s) for s in batch_sizes if s > 0}):
                 m.match(["\x00prewarm/nomatch"] * s)
 
@@ -322,19 +360,21 @@ class TorchRouter(Router):
         totals (zeros while the matcher's ``stage_timing`` is off) and the
         words kernels' launch counts."""
         m, t = self.matcher, self.table
-        sn = m.stage_ns
+        # the dense and sharded matchers keep no stage split and their
+        # tables no compactions: zeros, as the JAX router reports them
+        sn = getattr(m, "stage_ns", None) or {}
         return {
             "uploads": m.uploads,
             "delta_uploads": m.delta_uploads,
             "upload_bytes": m.upload_bytes,
-            "compactions": t.compactions,
-            "compact_ms": round(t.compact_ms, 3),
-            "cand_cache_invalidations": t.cand_cache_invalidations,
-            "fused_batches": m.fused_batches,
-            "stage_encode_ms_total": round(sn["encode"] / 1e6, 3),
-            "stage_dispatch_ms_total": round(sn["dispatch"] / 1e6, 3),
-            "stage_fetch_ms_total": round(sn["fetch"] / 1e6, 3),
-            "stage_decode_ms_total": round(sn["decode"] / 1e6, 3),
+            "compactions": getattr(t, "compactions", 0),
+            "compact_ms": round(getattr(t, "compact_ms", 0.0), 3),
+            "cand_cache_invalidations": getattr(t, "cand_cache_invalidations", 0),
+            "fused_batches": getattr(m, "fused_batches", 0),
+            "stage_encode_ms_total": round(sn.get("encode", 0) / 1e6, 3),
+            "stage_dispatch_ms_total": round(sn.get("dispatch", 0) / 1e6, 3),
+            "stage_fetch_ms_total": round(sn.get("fetch", 0) / 1e6, 3),
+            "stage_decode_ms_total": round(sn.get("decode", 0) / 1e6, 3),
             # process-wide launch counters of the words kernels
             "kernel_launches_packed": match_words_packed.launches,
             "kernel_launches_legacy": match_words_legacy.launches,
@@ -342,8 +382,10 @@ class TorchRouter(Router):
 
     def device_hbm(self) -> Dict[str, float]:
         """Device-memory model of the table mirror (tiles, fid map): the
-        device profiler's provider seam (broker/devprof.py)."""
-        return self.matcher.hbm_breakdown()
+        device profiler's provider seam (broker/devprof.py); {} for a
+        matcher without a breakdown."""
+        f = getattr(self.matcher, "hbm_breakdown", None)
+        return f() if callable(f) else {}
 
     def is_match(self, topic: str) -> bool:
         if self._side is not None:

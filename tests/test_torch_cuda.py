@@ -1,11 +1,13 @@
 """The CUDA kernels on a card: each against its plain twin, the router on
 the card against the same router on the CPU, each hand-selected matcher
 mode (unfused, topk, segmented) against the same mode on the CPU, the
-port's broker with every batch on the card against the ``DefaultRouter``
-oracle, and its retained replay through the retained-scan kernels
-against ``RetainTree``, a broker whose retainer plugin loads its store
-into the card's retained table, and ``--workers 2 --router xla``: two
-broker processes on one card.
+dense kernels against their twins and the dense router against the
+partitioned one, the sharded matchers over a list of two devices (one
+card twice) against the local ones, the port's broker with every batch on
+the card against the ``DefaultRouter`` oracle, and its retained replay
+through the retained-scan kernels against ``RetainTree``, a broker whose
+retainer plugin loads its store into the card's retained table, and
+``--workers 2 --router xla``: two broker processes on one card.
 
 This file imports nothing of JAX, so it also runs where JAX is not
 installed: ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
@@ -20,7 +22,10 @@ import numpy as np
 import pytest
 import torch
 
+import rmqtt_tpu_torch.ops.encode as TE
+import rmqtt_tpu_torch.ops.match as DM
 import rmqtt_tpu_torch.ops.match_words as MW
+import rmqtt_tpu_torch.ops.retained as DR
 import rmqtt_tpu_torch.ops.partitioned as TP
 import rmqtt_tpu_torch.ops.retained_part as RP
 from rmqtt_tpu_torch.bench.mqtt_load import (LoadClient, connect_and_subscribe,
@@ -29,11 +34,13 @@ from rmqtt_tpu_torch.bench.mqtt_load import (LoadClient, connect_and_subscribe,
 from rmqtt_tpu_torch.bench.retained_cases import (RETAINED_CASES, TABLE_FILTERS,
                                                   make_retained_case, table_inputs,
                                                   table_topics)
+from rmqtt_tpu_torch.bench.dense_cases import DENSE_CASES, as_tensors, make_dense_case
 from rmqtt_tpu_torch.bench.words_cases import EDGE_CASES, make_case
 from rmqtt_tpu_torch.broker.context import BrokerConfig, ServerContext
 from rmqtt_tpu_torch.broker.server import MqttBroker
 from rmqtt_tpu_torch.bench.workloads import (gen_mixed, gen_retained_topics,
                                              gen_topics_uniform, retained_sub_filters)
+from rmqtt_tpu_torch.parallel import ShardedMatcher, ShardedPartitionedMatcher, make_mesh
 from rmqtt_tpu_torch.router import Id, SubscriptionOptions, TorchRouter
 
 FORMATS = ["packed", "legacy_int16", "legacy_int32"]
@@ -204,6 +211,159 @@ def test_matcher_modes_on_cuda_equal_cpu(cuda, mode, monkeypatch):
     got, want = (m.match(topics) for m in ms)
     assert [g.tolist() for g in got] == [w.tolist() for w in want]
     assert (ms[0].full_uploads, ms[0].delta_uploads) == (1, 1)
+
+
+# ------------------------------------------- the dense backend, the mesh
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DENSE_CASES, ids=[c.name for c in DENSE_CASES])
+def test_dense_kernels_equal_plain_on_cuda(cuda, case):
+    """Both dense full-scan kernels against their twins on
+    ``bench/dense_cases.py``'s cases (B of 1 and 3, capacity 1,024, two
+    blocks of topics, L of 9, 20 and 40, padded topics and filters, $SYS
+    rows and topics, a bare '#', '+/#', blank levels)."""
+    inp = make_dense_case(case)
+    fwd, inv = as_tensors(inp.forward, cuda), as_tensors(inp.inverse, cuda)
+    n0 = DM.match_packed.launches, DM.match_retained.launches
+    got_f, got_i = DM.match_packed(*fwd), DM.match_retained(*inv)
+    torch.cuda.synchronize()
+    assert (DM.match_packed.launches, DM.match_retained.launches) == (n0[0] + 1, n0[1] + 1)
+    want_f, want_i = DM.match_packed_plain(*fwd), DM.match_retained_plain(*inv)
+    assert torch.equal(got_f, want_f) and bool((want_f != 0).any())
+    assert torch.equal(got_i, want_i) and bool((want_i != 0).any())
+
+
+def _routed(rows):
+    return [sorted(r.topic_filter for rels in out.values() for r in rels)
+            + sorted(tf for _g, tf in shared) for out, shared in rows]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["bitmap", "words"])
+def test_dense_router_on_cuda_equals_partitioned(cuda, path, monkeypatch):
+    """``TorchRouter(backend="dense")`` on the card routes as
+    ``backend="partitioned"`` does: a batch of 512, small batches, and
+    after churn (one delta upload); the words path forced with
+    ``COMPACT_BITMAP_BYTES = 0`` (max_matches 8, so that topics overflow
+    to the bitmap path)."""
+    monkeypatch.setenv("RMQTT_HYBRID_MAX", "0")
+    if path == "words":
+        monkeypatch.setattr(DM, "COMPACT_BITMAP_BYTES", 0)
+    dense = TorchRouter(device=cuda, backend="dense")
+    part = TorchRouter(device=cuda)
+    dense.matcher.max_matches = 8
+    rng = random.Random(4)
+    filters = gen_mixed(rng, 3000)
+    opts = SubscriptionOptions()
+    for r in (dense, part):
+        for i, f in enumerate(filters):
+            r.add(f, Id(1, f"c{i}"), opts)
+    topics = gen_topics_uniform(rng, 512)
+    n0 = DM.match_packed.launches
+    for batch in (topics, topics[:1], topics[:8]):
+        items = [(None, t) for t in batch]
+        assert _routed(dense.matches_batch_raw(items)) == \
+            _routed(part.matches_batch_raw(items))
+    assert DM.match_packed.launches >= n0 + 3
+    for r in (dense, part):
+        for i, f in enumerate(filters[:200]):
+            r.remove(f, Id(1, f"c{i}"))
+        for j, f in enumerate(gen_mixed(random.Random(5), 200)):
+            r.add(f, Id(1, f"n{j}"), opts)
+    items = [(None, t) for t in topics]
+    assert _routed(dense.matches_batch_raw(items)) == _routed(part.matches_batch_raw(items))
+    m = dense.matcher
+    assert (m.full_uploads, m.delta_uploads) == (1, 1)
+
+
+@pytest.mark.cuda
+def test_dense_retained_scanner_on_cuda_equals_cpu(cuda):
+    rng = random.Random(6)
+    topics = gen_retained_topics(rng, 4000)
+    tables = [TE.FilterTable(), TE.FilterTable()]
+    for t in tables:
+        for topic in topics:
+            t.add(topic)
+    filters = retained_sub_filters(random.Random(5), 64)
+    n0 = DM.match_retained.launches
+    got = DR.RetainedScanner(tables[0], device=cuda).scan(filters)
+    want = DR.RetainedScanner(tables[1], device="cpu").scan(filters)
+    assert DM.match_retained.launches == n0 + 1
+    assert [g.tolist() for g in got] == [w.tolist() for w in want]
+    assert sum(len(w) for w in want) > 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fused", "unfused", "topk"])
+def test_sharded_partitioned_on_cuda_equals_local(cuda, mode):
+    """``ShardedPartitionedMatcher`` over ``[cuda:0] x 2`` (dp=2: the code
+    path, not multi-card scaling) equals the local matcher, launching the
+    legacy words kernel once a device; ``ShardedMatcher`` over the same
+    list at fp=2 equals ``DenseMatcher``'s bitmap and counts."""
+    table = TP.PartitionedTable()
+    rng = random.Random(7)
+    for f in gen_mixed(rng, 3000):
+        table.add(f)
+    topics = gen_topics_uniform(rng, 600)
+    mesh = make_mesh([cuda, cuda], dp=2)
+    sm = ShardedPartitionedMatcher(table, mesh, compact="topk" if mode == "topk" else None)
+    if mode == "unfused":
+        sm._fused = False
+    local = TP.PartitionedMatcher(table, device=cuda)
+    n0 = MW.match_words_legacy.launches
+    for batch in (topics, topics[:1], topics[:8]):
+        got, want = sm.match(batch), local.match(batch)
+        assert [g.tolist() for g in got] == [w.tolist() for w in want]
+    assert MW.match_words_legacy.launches == n0 + 6
+    assert sm.fused_batches == (3 if mode == "fused" else 0)
+    dt = TE.FilterTable()
+    for f in gen_mixed(random.Random(8), 2000):
+        dt.add(f)
+    ttok, tlen, td = dt.encode_topics(topics[:512])
+    sh = ShardedMatcher(dt, make_mesh([cuda, cuda], dp=1, fp=2))
+    packed, counts = sh.assemble(sh.match_encoded(ttok, tlen, td))
+    want = DM.DenseMatcher(dt, device=cuda).match_encoded(ttok, tlen, td).cpu().numpy()
+    assert np.array_equal(packed, want)
+    assert np.array_equal(counts, np.unpackbits(want.view(np.uint8), axis=1).sum(1))
+
+
+@pytest.mark.cuda
+def test_mesh_router_on_cuda(cuda, monkeypatch):
+    monkeypatch.setenv("RMQTT_HYBRID_MAX", "0")
+    mesh_r = TorchRouter(mesh=make_mesh([cuda, cuda], dp=2))
+    local = TorchRouter(device=cuda)
+    assert isinstance(mesh_r.matcher, ShardedPartitionedMatcher)
+    rng = random.Random(9)
+    opts = SubscriptionOptions()
+    for i, f in enumerate(gen_mixed(rng, 2000)):
+        mesh_r.add(f, Id(1, f"c{i}"), opts)
+        local.add(f, Id(1, f"c{i}"), opts)
+    items = [(None, t) for t in gen_topics_uniform(rng, 300)]
+    assert _routed(mesh_r.matches_batch_raw(items)) == _routed(local.matches_batch_raw(items))
+    assert mesh_r.device_hbm()["replicas"] == 2
+
+
+@pytest.mark.cuda
+def test_dense_matcher_raises_when_the_library_fails(cuda, monkeypatch):
+    """Given CUDA tensors the dense wrappers launch or raise: a library
+    that does not load makes ``DenseMatcher`` and ``RetainedScanner``
+    raise, and nothing runs the twins instead."""
+    import rmqtt_tpu_torch.ops._build as B
+
+    def broken():
+        raise B.KernelError("cannot load the kernel library")
+
+    table = TE.FilterTable()
+    for f in ("a/+", "a/#", "#"):
+        table.add(f)
+    m = DM.DenseMatcher(table, device=cuda)
+    sc = DR.RetainedScanner(table, device=cuda)
+    monkeypatch.setattr(B, "kernel_library", broken)
+    n0 = DM.match_packed.launches, DM.match_retained.launches
+    with pytest.raises(B.KernelError, match="cannot load"):
+        m.match(["a/b"])
+    with pytest.raises(B.KernelError, match="cannot load"):
+        sc.scan(["a/+"])
+    assert (DM.match_packed.launches, DM.match_retained.launches) == n0
 
 
 @pytest.mark.cuda
