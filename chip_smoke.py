@@ -46,6 +46,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
    2,048-topic sample checked against the ``TopicTree`` oracle, every topic
    against the same router path run with the plain words twin on the card;
    2,000 removes + 2,000 adds (delta uploads), then the sample again;
+   ``bench/roofline_model.py``'s ``model_table`` of the live table (the
+   candidate counts of the first 2,048 topics) at the card's 3,350 GB/s
+   beside the better warm pipelined pass: the modeled ceiling in topics/s
+   and the measured fraction of it;
 4e. the topic encode alone on phase 4's table: the 32,768 topics in batches
    of 16,384 through ``_encode_native`` and ``_encode_py``, each from a
    cold candidate cache and then warm; the tuples equal array for array
@@ -128,8 +132,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
    payloads), then 64 subscribers each SUBSCRIBE one filter of the mix; the
    replay must equal, as a multiset, what ``RetainTree`` gives, through the
    retained kernels, with no message dropped. 6e: ``--workers 4 --fabric
-   --router xla`` (``RMQTT_HYBRID_MAX=0``) carrying 6a's subscriptions and
-   wave, one publisher at least on another worker than the owner (one is
+   --router xla`` (``RMQTT_HYBRID_MAX=0``) carrying the subscriptions of
+   the first 16 of 6a's 64 subscribers (250,000 filters) and 6a's wave,
+   one publisher at least on another worker than the owner (one is
    reconnected until the kernel places it there), so publishes take the
    submit path: the deliveries equal the oracle, the owner (worker 1) matched
    every publish (none degraded to a worker's own table) with one
@@ -140,10 +145,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
    store in the run's temp directory (compaction past 2,000,000 journal
    rows, so never within the phase; messages live an hour) takes 6d's
    60,000 retained messages,
-   then the 1M filters on 64 persistent MQTT 5 sessions (no retained
+   then 6e's 250,000 filters on 16 persistent MQTT 5 sessions (no retained
    replay), and is killed with SIGKILL; restarted on the same store with
-   every batch on the device, it must recover 1M subscriptions, 60,000
-   retained messages and 64 sessions, deliver a wave of the first
+   every batch on the device, it must recover 250,000 subscriptions,
+   60,000 retained messages and 16 sessions, deliver a wave of the first
    ``RECOVERY_WAVE`` topics of 6a's exactly, one words-kernel launch a
    batch, and replay each session's retained filter exactly on the
    retained kernels; it prints the recovery, the restart to listening and
@@ -173,7 +178,18 @@ Phases, each of which fails the run (nonzero exit, no result line):
    on the same configuration: the retainer loads the store into the
    card's retained table before the listeners open, and 16 subscribers of
    6d's mix (one broad) replay exactly against ``RetainTree`` on both
-   retained kernels;
+   retained kernels. 6h: ``bench/scenarios.py``'s
+   ``run_profile("storm_churn_overload_kill")``, a ``--router xla`` broker
+   (``RMQTT_HYBRID_MAX=0``, ``[routing] cache = false``) taking a connect
+   storm of 60, subscribe churn (4 clients, 6 rounds), a 5,000-message QoS
+   0 burst at a subscriber that never reads (judged once the broker has
+   received all of it, one dispatch a publish) and a ``device.dispatch``
+   failpoint kill (``times(6, error)``, 14 QoS 1 publishes through it) at
+   once, within 150 s: the broker's SLO engine finds both objectives met,
+   every phase passes, the kill fails over to the host trie and switches
+   back to the device with every QoS 1 message delivered, and
+   ``kernel.dispatch`` and the broker's words-kernel launches count more
+   than 0 (its ``/api/v1/stats``, read just before the profile stops it);
 7. one pipelined packed-tile pass under ``torch.profiler``: the device's
    busy share and its time by kernel;
 8. the kernel summary line (launches on each main path, equality with the
@@ -182,8 +198,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
 Cut to fit the 1,200 s a run may take (PERF.md §4): 6a's and 6e's wave
 to 4,096 of the cfg3 topics (``--wave``), 6f's wave after the restart to
 2,048 (``RECOVERY_WAVE``), 6g's wave to the same, 4m to one pass before
-its churn. The 1M filters and the 60,000
-retained messages are not cut.
+its churn, 6e's and 6f's subscriptions to those of 16 of the 64
+subscribers (``FABRIC_SUBSCRIBERS``: 250,000 filters). The 1M filters
+elsewhere and the 60,000 retained messages are not cut.
 
 The tables and the oracles are built before the phases that use them, and
 the garbage collector is then frozen, as ``bench.py`` does for the same
@@ -215,6 +232,7 @@ import numpy as np
 import torch
 
 from rmqtt_tpu_torch.bench.dense_cases import DENSE_CASES, as_tensors, make_dense_case
+from rmqtt_tpu_torch.bench import scenarios as SC
 from rmqtt_tpu_torch.bench.mqtt_load import (LoadClient, connect_and_subscribe,
                                              expected_deliveries, oracle_router,
                                              publish_wave)
@@ -224,13 +242,13 @@ from rmqtt_tpu_torch.bench.words_cases import (EDGE_CASES, make_case,
 from rmqtt_tpu_torch.bench.retained_cases import (RETAINED_CASES, TABLE_FILTERS,
                                                   make_retained_case, table_inputs,
                                                   table_topics)
-from rmqtt_tpu_torch.bench.retained_kernels import (RETAINED_BATCH, card_line, real_shapes,
-                                                    retained_bound_ms)
-from rmqtt_tpu_torch.bench.timing import (HBM_BYTES_PER_S, INT_OPS_PER_S, SCALAR_OPS_PER_S,
-                                          time_cuda, time_graph)
+from rmqtt_tpu_torch.bench.retained_kernels import RETAINED_BATCH, card_line, real_shapes
+from rmqtt_tpu_torch.bench.roofline_model import (dense_bound_ms, model_table,
+                                                  retained_bound_ms, words_bound_ms)
+from rmqtt_tpu_torch.bench.timing import HBM_BYTES_PER_S, time_cuda, time_graph
 from rmqtt_tpu_torch.bench.workloads import (gen_mixed, gen_retained_topics,
                                              gen_topics_uniform, retained_sub_filters)
-from rmqtt_tpu_torch.core.topic import match_filter, parse_shared
+from rmqtt_tpu_torch.core.topic import match_filter, parse_shared, split_levels
 from rmqtt_tpu_torch.core.trie import RetainTree, TopicTree
 from rmqtt_tpu_torch.ops import match as DM
 from rmqtt_tpu_torch.ops import match_words as MW
@@ -303,28 +321,6 @@ def timed(name: str, fn, *args):
         return fn(*args)
     finally:
         PHASE_S[name] = time.perf_counter() - t0
-
-
-def words_bound_ms(tiles, ttok, chunk_ids, nlvl: int):
-    """Least time for one words call on these inputs: the larger of the
-    bytes it must move (each referenced tile, each input read once, the
-    words written once) over the memory rate and its integer operations
-    (~(2*nlvl+6) per row tested) over the scalar rate. Chunk 0 is the
-    table's empty chunk: a slot naming it (padding) needs no tile read and
-    no row test, only its zero words. → (bound ms, "bytes" or
-    "operations", the same bound with the operations at the integer rate)."""
-    b, nc = chunk_ids.shape
-    tile_bytes = tiles[0].numel() * tiles.element_size()
-    real = chunk_ids != 0
-    used = torch.unique(chunk_ids[real]).numel()
-    nbytes = (used * tile_bytes + chunk_ids.numel() * 4 + ttok.numel() * 4
-              + 2 * b * 4 + b * nc * MW.WORDS_PER_CHUNK * 4)
-    ops = int(real.sum()) * MW.CHUNK * (2 * nlvl + 6)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / SCALAR_OPS_PER_S * 1e3
-    t_int = ops / INT_OPS_PER_S * 1e3
-    return (max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"),
-            max(t_bytes, t_int))
 
 
 # ------------------------------------------------------------ phase 1, 2
@@ -859,6 +855,18 @@ def phase_cfg3(router: TorchRouter, tree: TopicTree, filters, topics, batch: int
     finally:
         set_fetch_timeout(None)
     log(f"    {sum(len(r) for r in kernel_filters)} routes per pass")
+    # the device-memory model of this table against the better warm
+    # pipelined pass, at the card's memory rate (bench.py's sample: the
+    # candidate counts of the first 2,048 topics)
+    ncs = [len(router.table._candidates_for(split_levels(t))) for t in topics[:2048]]
+    nums["roofline"] = model_table(router.table, ncs,
+                                   measured_topics_per_sec=max(nums["pipelined"]))
+    model = nums["roofline"]
+    log(f"    roofline model (bench/roofline_model.py) at {model['hbm_gbps']:.0f} GB/s: "
+        f"ceiling {model['ceiling_topics_per_sec']} topics/s, measured "
+        f"{model['measured_topics_per_sec']} topics/s = "
+        f"{model['measured_topics_per_sec'] / model['ceiling_topics_per_sec']:.3e} of it; "
+        f"{json.dumps(model, sort_keys=True)}")
     for depth in (2, 1):
         rows, *timing = route_all(router, topics, batch, depth, matcher_only=True)
         del rows
@@ -1164,23 +1172,6 @@ DENSE_PAIRS = {
     "dense_match_packed": (DM.match_packed, DM.match_packed_plain),
     "dense_match_retained": (DM.match_retained, DM.match_retained_plain),
 }
-
-
-def dense_bound_ms(rows: int, lvl: int, b: int):
-    """Least time for one dense scan of ``b`` topics (filters) against
-    ``rows`` rows of ``lvl`` levels: every (topic, row) pair is tested, at
-    ~(2*lvl+6) integer operations a test (the words kernels' convention),
-    whatever the data; the bytes are the table (tokens and ~10 bytes of
-    metadata a row) and the batch read once and the bitmap written once.
-    → (bound ms with the operations at the FP32 rate, "bytes" or
-    "operations", the same at the integer rate)."""
-    nbytes = rows * (lvl * 4 + 10) + b * (lvl * 4 + 10) + b * rows // 8
-    ops = b * rows * (2 * lvl + 6)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / SCALAR_OPS_PER_S * 1e3
-    t_int = ops / INT_OPS_PER_S * 1e3
-    return (max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"),
-            max(t_bytes, t_int))
 
 
 def build_dense(filters, retained_topics, dev):
@@ -2152,6 +2143,7 @@ def phase_retained_broker(retained_topics, filters) -> dict:
 
 
 FABRIC_WORKERS = 4  # 6e: worker processes; worker 1 owns the table
+FABRIC_SUBSCRIBERS = 16  # 6e, 6f: the first of 6a's 64 subscribers (the cut, PERF.md §4)
 SESSION_EXPIRY_S = 7200  # 6f: the persistent sessions outlive the crash
 RECOVERY_WAVE = 2_048  # 6f: publishes after the restart (cut from 6a's wave)
 
@@ -2403,15 +2395,23 @@ async def _recovery(brokers, tmp: Path, toml: str, subs, wave, retained, filters
 
 def phase_fabric_recovery(subs, wave, retained_topics, filters) -> tuple:
     """6e and 6f → their numbers. 6e: ``--workers 4 --fabric --router xla``
-    carrying 6a's subscriptions and ``wave`` (``launches_packed``: the
-    owner's words-kernel launches over it). 6f: ``[durability]`` with
-    ``--router xla`` and ``[retain] tpu = true``, SIGKILL, then a restart on
-    the same store, a wave of ``RECOVERY_WAVE`` of the same topics and 64
-    replays. To fit the run's time, all of 6f runs while 6e's workers take
-    their subscriptions (the fabric forwards each filter to the owner: the
+    carrying the subscriptions of 6a's first ``FABRIC_SUBSCRIBERS``
+    subscribers and ``wave`` (``launches_packed``: the owner's words-kernel
+    launches over it). 6f: ``[durability]`` with ``--router xla`` and
+    ``[retain] tpu = true``, the same subscribers' filters on as many
+    persistent sessions, SIGKILL, then a restart on the same store, a wave
+    of ``RECOVERY_WAVE`` of the same topics and a replay a session. To fit
+    the run's time, all of 6f runs while 6e's workers take their
+    subscriptions (the fabric forwards each filter to the owner: the
     longest part of the run); 6e's wave runs alone after both."""
     log(f"[6e] the fabric: --workers {FABRIC_WORKERS} --fabric --router xla, and "
         f"[6f] recovery: [durability] on a sqlite store, SIGKILL, restart")
+    # cut to fit the run's time: the first FABRIC_SUBSCRIBERS subscribers
+    # and their deliveries of the wave
+    subs = dict(list(subs.items())[:FABRIC_SUBSCRIBERS])
+    topics, payloads, want = wave
+    wave = (topics, payloads,
+            collections.Counter({k: n for k, n in want.items() if k[0] in subs}))
     rtopics = retained_topics[:RETAINED_BROKER_TOPICS]
     rpayloads = [b"r%d" % i for i in range(len(rtopics))]
     filters = filters[:len(subs)]
@@ -2993,6 +2993,86 @@ class PluginPhase:
         await loop.run_in_executor(None, b.stop)
 
 
+# --------------------------------------------------------------- phase 6h
+SCENARIO_PROFILE = "storm_churn_overload_kill"
+SCENARIO_LIMIT_S = 150.0  # 6h: the phase's own hard limit
+
+
+def check_scenario(report: dict, stats: dict) -> None:
+    """6h's verdict on the scenario report and the broker's last
+    ``/api/v1/stats``: raises unless the run is green by its own SLO
+    engine, every phase passed, the device kill failed over and switched
+    back with no QoS 1 message lost, and batches reached the card."""
+    if not report["ok"] or report["errors"]:
+        raise AssertionError(f"6h: the profile failed: ok={report['ok']}, errors "
+                             f"{report['errors']}, phases {report['phases']}")
+    bad = [p["name"] for p in report["phases"] if not p.get("ok")]
+    if bad:
+        raise AssertionError(f"6h: phases failed: {bad}")
+    kill = next(p for p in report["phases"] if p["name"] == "failpoint_kill")
+    if not ((kill["failovers"] or 0) >= 1 and kill["triggers"] > 0
+            and kill["delivered"] == kill["published"]
+            and kill["failover_state"] == "device"):
+        raise AssertionError(f"6h: the device kill did not fail over and back "
+                             f"losslessly: {kill}")
+    if report["latency"].get("kernel.dispatch", {}).get("count", 0) <= 0:
+        raise AssertionError("6h: no kernel.dispatch recorded: no batch reached the card")
+    if stats.get("routing_kernel_launches_packed", 0) <= 0:
+        raise AssertionError(f"6h: the broker launched no words kernel: "
+                             f"{ {k: v for k, v in stats.items() if 'kernel' in k} }")
+
+
+def phase_scenario() -> dict:
+    """6h: the scenario matrix's all-device profile through the port's
+    ``run_profile``: a ``--router xla`` broker subprocess
+    (``RMQTT_HYBRID_MAX=0``, no routing cache) takes a connect storm,
+    subscribe churn, a QoS 0 overload burst and a ``device.dispatch``
+    failpoint kill at once, judged by its own SLO engine. The broker's
+    ``/api/v1/stats`` is read just before the profile stops it, for its
+    words-kernel launches. → the report, with those stats under
+    ``"broker_stats"``."""
+    log(f"[6h] the scenario matrix: run_profile({SCENARIO_PROFILE!r}) on a "
+        f"--router xla broker")
+    stats: dict = {}
+    stop = SC.ScenarioBroker.stop
+
+    async def stop_after_stats(broker) -> None:
+        try:
+            stats.update((await broker.api("/api/v1/stats"))[0]["stats"])
+        except (OSError, RuntimeError) as e:  # a timeout is an OSError
+            log(f"    the broker's stats could not be read: {type(e).__name__}: {e}")
+        finally:
+            await stop(broker)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_scenario_") as tmp:
+        SC.ScenarioBroker.stop = stop_after_stats
+        try:
+            report = asyncio.run(asyncio.wait_for(
+                SC.run_profile_async(SCENARIO_PROFILE, workdir=tmp), SCENARIO_LIMIT_S))
+            check_scenario(report, stats)
+        except BaseException:
+            broker_log = Path(tmp) / "broker.log"
+            if broker_log.exists():
+                tail = broker_log.read_bytes()[-6000:].decode(errors="replace")
+                log(f"    --- scenario broker log (tail) ---\n{tail}")
+            raise
+        finally:
+            SC.ScenarioBroker.stop = stop
+    for p in report["phases"]:
+        log(f"    phase {json.dumps(p, sort_keys=True)}")
+    lat = {k: report["latency"][k] for k in ("publish.e2e", "kernel.dispatch")}
+    log(f"    {card_line()}: goodput {json.dumps(report['goodput'], sort_keys=True)}; "
+        f"p50/p99 ms " + ", ".join(f"{k} {v['p50_ms']}/{v['p99_ms']} ({v['count']})"
+                                   for k, v in lat.items())
+        + f"; drops {report['drops']}; duration {report['duration_s']} s; words "
+        f"kernel launches {stats['routing_kernel_launches_packed']}")
+    for o in report["slo"]["objectives"]:
+        log(f"    slo {o['name']} ({o['kind']}): compliant {o['compliant']}, ratio "
+            f"{o['ratio']} against {o['target']}, state {o['state']}")
+    report["broker_stats"] = stats
+    return report
+
+
 def phase_profile(router: TorchRouter, topics, batch: int) -> None:
     """One pipelined pass through the packed-tile router under the profiler,
     after every timed pass (the profiler adds host overhead)."""
@@ -3116,6 +3196,7 @@ def main(argv=None) -> int:
     if broker["launches_packed"] <= 0:
         raise AssertionError("match_words_packed was never launched in the broker")
     plugin = broker["plugin"]
+    scenario = timed("6h", phase_scenario)
     rbroker = timed("6d", phase_retained_broker, retained_topics, sub_filters)
     fabric, recovered = timed("6e+6f", phase_fabric_recovery, subs, waves[0],
                               retained_topics, sub_filters)
@@ -3125,7 +3206,9 @@ def main(argv=None) -> int:
                                "broker, phase 6a": broker["launches_packed"],
                                "fabric owner, phase 6e": fabric["launches_packed"],
                                "recovered broker, phase 6f": recovered["launches_packed"],
-                               "plugin broker, phase 6g": plugin["launches_packed"]},
+                               "plugin broker, phase 6g": plugin["launches_packed"],
+                               "scenario broker, phase 6h":
+                               scenario["broker_stats"]["routing_kernel_launches_packed"]},
         "match_words_legacy": {"router with RMQTT_PACKED=0, phase 5":
                                launches["match_words_legacy"],
                                "router modes, phase 4m": modes["launches_legacy"]},
@@ -3198,7 +3281,9 @@ def main(argv=None) -> int:
         f"{recovered['restart_to_listening_s']:.3f} s; 6g plugin broker: subscribe "
         f"{plugin['subscribe_s']:.3f} s, wave {plugin['wave_deliveries_per_s']:.1f} "
         f"deliveries/s, restart to listening {plugin['restart_to_listening_s']:.3f} s "
-        f"(retainer load {plugin['retainer_load_ms']:.0f} ms); CUDA probe s "
+        f"(retainer load {plugin['retainer_load_ms']:.0f} ms); 6h {SCENARIO_PROFILE} "
+        f"{scenario['duration_s']} s, kernel.dispatch p99 "
+        f"{scenario['latency']['kernel.dispatch']['p99_ms']} ms; CUDA probe s "
         f"{broker['probe_s']} {rbroker['probe_s']:.3f} {fabric['probe_s']} "
         f"{recovered['probe_s']:.3f} {plugin['probe_s']:.3f}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -6,8 +6,9 @@ The shapes (:func:`real_shapes`), on the 1M-draw table: the scanner's
 both tiers), and the broker's one-filter scans (``broker/retain.py`` scans
 each SUBSCRIBE's filter alone): the narrow filter of the mix with the
 longest candidate list (gather, B = 1) and the first broad filter that
-compares a literal level (full, B = 1). :func:`retained_bound_ms` is the
-least time the card could take for a call.
+compares a literal level (full, B = 1). :func:`retained_bound_ms`
+(``bench/roofline_model.py``) is the least time the card could take for a
+call.
 
     python -m rmqtt_tpu_torch.bench.retained_kernels --other OLD.cu [--other ...]
 
@@ -34,71 +35,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from rmqtt_tpu_torch.bench.timing import (HBM_BYTES_PER_S, INT_OPS_PER_S, SCALAR_OPS_PER_S,
-                                          time_cuda, time_graph)
+from rmqtt_tpu_torch.bench.roofline_model import retained_bound_ms
+from rmqtt_tpu_torch.bench.timing import time_cuda, time_graph
 from rmqtt_tpu_torch.bench.workloads import gen_retained_topics, retained_sub_filters
 from rmqtt_tpu_torch.core.topic import HASH, PLUS, split_levels
 from rmqtt_tpu_torch.ops import retained_part as RP
 from rmqtt_tpu_torch.ops._build import SOURCES, kernel_library, load_library
 
 RETAINED_BATCH = 64  # run_retained's scan batch
-
-
-def retained_work(tiles, fields, chunk_ids=None):
-    """What one retained-scan call on these inputs must do, counting only
-    what a row test needs. Bytes: of each tile it must test (gather: the
-    distinct nonzero ids, chunk 0 being the empty chunk that pads every
-    list; full: the tiles that hold a live row) the rows its filters read —
-    rlen; flags if one of them starts with a wildcard (the ``$`` check);
-    the token rows of their literal (non-``+``) levels within their prefix
-    — then the filter fields and ids read once and the words written once.
-    Operations: each test of a real filter (``flen != -2``) against a live
-    32-bit word of rows costs ~6 plus 2 per literal level of the filter; a
-    word holds one int32 row or two int16 rows (one operation tests both
-    halves), and is live when one of its rows is (``rlen >= 1``). → (bytes,
-    operations)."""
-    lvl = tiles.shape[1] - 3
-    row_bytes = tiles.shape[2] * tiles.element_size()
-    ftok, flen, fprefix, _fhash, fwild = fields
-    real_f = flen != -2
-    lit = ((torch.arange(lvl, device=ftok.device)[None, :] < fprefix[:, None])
-           & (ftok != RP.PLUS_TOK) & real_f[:, None])  # [B, L]
-    # per filter, the rows a test of it reads: its literal token rows,
-    # rlen, flags
-    need = torch.cat([lit, real_f[:, None], ((fwild != 0) & real_f)[:, None]], dim=1)
-    op_f = (6 + 2 * lit.sum(dim=1)) * real_f  # operations per word test
-    live = tiles[:, lvl, :] >= 1
-    if tiles.element_size() == 2:
-        live = live[:, 0::2] | live[:, 1::2]  # rows 2m, 2m+1 share a word
-    live_n = live.sum(dim=1)  # live words per tile
-    in_bytes = sum(f.numel() * 4 for f in fields)
-    if chunk_ids is None:
-        rows_read = int(need.any(dim=0).sum()) * int((live_n > 0).sum())
-        ops = int(live_n.sum()) * int(op_f.sum())
-        out_words = ftok.shape[0] * tiles.shape[0] * RP.WORDS_PER_CHUNK
-    else:
-        ids = chunk_ids.long()
-        real = (ids != 0) & real_f[:, None]
-        # a tile is read once per row whichever of its slots need the row
-        rows_read = sum(torch.unique(ids[real & need[:, r:r + 1]]).numel()
-                        for r in range(need.shape[1]))
-        ops = int((live_n[ids] * op_f[:, None])[real].sum())
-        in_bytes += chunk_ids.numel() * 4
-        out_words = chunk_ids.numel() * RP.WORDS_PER_CHUNK
-    return rows_read * row_bytes + in_bytes + out_words * 4, ops
-
-
-def retained_bound_ms(tiles, fields, chunk_ids=None):
-    """Least time for one retained-scan call: :func:`retained_work`'s bytes
-    over the memory rate, its operations over the FP32 and the integer
-    rates. → (bound ms, "bytes" or "operations", the bound with the
-    operations at the integer rate)."""
-    nbytes, ops = retained_work(tiles, fields, chunk_ids)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / SCALAR_OPS_PER_S * 1e3
-    t_int = ops / INT_OPS_PER_S * 1e3
-    return (max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"),
-            max(t_bytes, t_int))
 
 
 def both_tier_batch(scanner, filters):

@@ -1,0 +1,195 @@
+"""The port's roofline numbers in one place: the analytic device-memory
+model of the partitioned match (``model_table``), and the least time the
+card could take for one call of each hand-written kernel
+(``words_bound_ms``, ``dense_bound_ms``, ``retained_bound_ms``).
+
+``chip_smoke.py`` phase 4 calls ``model_table`` against the live 1M-filter
+packed table with the candidate counts of the first 2,048 topics and the
+pass's measured topics/s, so each run prints its modeled ceiling beside
+its measured rate. The model (see ``ops/partitioned.pack_device_rows`` /
+``pack_device_rows_packed`` for the layouts):
+
+    tile_bytes_legacy  = (L+3) * CHUNK * dtype_size      # int16 field-major
+    tile_bytes_packed  = groups * CHUNK * 4              # int32 byte planes
+    bytes_per_topic    = NC_eff * tile_bytes             # the scan's gathers
+                       + NC_eff * WPC * 4                # packed words out
+    ceiling            = HBM_BW / bytes_per_topic        # topics/s if bound
+
+plus the fused pipeline's deltas: the words array no longer round-trips
+between two launches, and the device→host wire carries 4 B/route (final
+fids) instead of 2 B/route and a host-side chunk gather, fid map and sort.
+
+The default part is the H100's device memory (``bench/timing.py``'s
+``HBM_BYTES_PER_S``); ``V5E_HBM_GBPS`` is the JAX package's default,
+kept so that the two models can be held equal at one rate.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from rmqtt_tpu_torch.bench.timing import HBM_BYTES_PER_S, INT_OPS_PER_S, SCALAR_OPS_PER_S
+from rmqtt_tpu_torch.ops.encode import PLUS_TOK
+from rmqtt_tpu_torch.ops.partitioned import CHUNK, WORDS_PER_CHUNK
+
+#: the modeled part: the H100's device memory rate (GB/s)
+H100_HBM_GBPS = HBM_BYTES_PER_S / 1e9
+#: the JAX package's default part (v5e, GB/s); no figure of the port uses it
+V5E_HBM_GBPS = 819.0
+
+
+def tile_bytes_legacy(max_levels: int, tok_wide: bool = False) -> int:
+    """One gathered tile in the legacy int16/int32 field-major layout."""
+    return (max_levels + 3) * CHUNK * (4 if tok_wide else 2)
+
+
+def tile_bytes_packed(layout) -> int:
+    """One gathered tile in the bit-packed int32 byte-plane layout."""
+    return layout.groups * CHUNK * 4
+
+
+def model_table(table, ncs: Sequence[int], bw_gbps: float = H100_HBM_GBPS,
+                measured_topics_per_sec: Optional[float] = None) -> dict:
+    """Device-memory roofline of one table against a measured candidate
+    count sample ``ncs`` (one entry per topic of the real publish stream).
+    With ``measured_topics_per_sec`` the measured fraction of the ceiling
+    is included. The same dict, key for key, as the JAX package's model for
+    the same table contents, ``ncs`` and ``bw_gbps``."""
+    ncs = np.asarray(ncs, dtype=np.float64)
+    nc_eff = float(ncs.mean()) if ncs.size else 1.0
+    layout = table.packed_layout()
+    legacy = tile_bytes_legacy(table.max_levels, table._tok_wide)
+    ptile = tile_bytes_packed(layout) if layout is not None else None
+    out_bytes = nc_eff * WORDS_PER_CHUNK * 4
+    bpt_legacy = nc_eff * legacy + out_bytes
+    bpt = nc_eff * ptile + out_bytes if ptile is not None else bpt_legacy
+    bw = bw_gbps * 1e9
+    out = {
+        "hbm_gbps": bw_gbps,
+        "nc_mean": round(nc_eff, 2),
+        "nc_p99": int(np.percentile(ncs, 99)) if ncs.size else 0,
+        "tile_bytes_legacy": legacy,
+        "tile_bytes_packed": ptile,
+        "packed_tile_reduction_x": (
+            round(legacy / ptile, 2) if ptile else None),
+        "bytes_per_topic_legacy": int(bpt_legacy),
+        "bytes_per_topic": int(bpt),
+        "hbm_bytes_reduction_x": round(bpt_legacy / bpt, 2),
+        "ceiling_topics_per_sec": int(bw / bpt),
+        "ceiling_topics_per_sec_legacy": int(bw / bpt_legacy),
+        # what the fused pipeline removes per topic: the [B, NC*WPC] words
+        # written by the words kernel and read again by the compaction, and
+        # the host decode (chunk gather + fid map + sort); what it costs:
+        # 4 B/route on the wire instead of 2
+        "fused": {
+            "words_roundtrip_bytes_per_topic": int(
+                2 * nc_eff * WORDS_PER_CHUNK * 4),
+            "wire_bytes_per_route": 4,
+            "unfused_wire_bytes_per_route": 2,
+            "host_decode_on_wire": False,
+        },
+    }
+    if measured_topics_per_sec is not None:
+        out["measured_topics_per_sec"] = round(measured_topics_per_sec, 1)
+        out["measured_fraction_of_ceiling"] = round(
+            measured_topics_per_sec / max(1.0, out["ceiling_topics_per_sec"]),
+            4)
+    return out
+
+
+# ------------------------------------------------- the kernels' least time
+def _bound(nbytes: int, ops: int):
+    """→ (the larger of the bytes over the memory rate and the operations
+    over the FP32 rate, in ms; "bytes" or "operations"; the same bound with
+    the operations at the integer rate)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / SCALAR_OPS_PER_S * 1e3
+    t_int = ops / INT_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"),
+            max(t_bytes, t_int))
+
+
+def words_bound_ms(tiles, ttok, chunk_ids, nlvl: int):
+    """Least time for one words call on these inputs: the larger of the
+    bytes it must move (each referenced tile, each input read once, the
+    words written once) over the memory rate and its integer operations
+    (~(2*nlvl+6) per row tested) over the scalar rate. Chunk 0 is the
+    table's empty chunk: a slot naming it (padding) needs no tile read and
+    no row test, only its zero words. → (bound ms, "bytes" or
+    "operations", the same bound with the operations at the integer rate)."""
+    b, nc = chunk_ids.shape
+    tile_bytes = tiles[0].numel() * tiles.element_size()
+    real = chunk_ids != 0
+    used = torch.unique(chunk_ids[real]).numel()
+    nbytes = (used * tile_bytes + chunk_ids.numel() * 4 + ttok.numel() * 4
+              + 2 * b * 4 + b * nc * WORDS_PER_CHUNK * 4)
+    ops = int(real.sum()) * CHUNK * (2 * nlvl + 6)
+    return _bound(nbytes, ops)
+
+
+def dense_bound_ms(rows: int, lvl: int, b: int):
+    """Least time for one dense scan of ``b`` topics (filters) against
+    ``rows`` rows of ``lvl`` levels: every (topic, row) pair is tested, at
+    ~(2*lvl+6) integer operations a test (the words kernels' convention),
+    whatever the data; the bytes are the table (tokens and ~10 bytes of
+    metadata a row) and the batch read once and the bitmap written once.
+    → (bound ms with the operations at the FP32 rate, "bytes" or
+    "operations", the same at the integer rate)."""
+    nbytes = rows * (lvl * 4 + 10) + b * (lvl * 4 + 10) + b * rows // 8
+    ops = b * rows * (2 * lvl + 6)
+    return _bound(nbytes, ops)
+
+
+def retained_work(tiles, fields, chunk_ids=None):
+    """What one retained-scan call on these inputs must do, counting only
+    what a row test needs. Bytes: of each tile it must test (gather: the
+    distinct nonzero ids, chunk 0 being the empty chunk that pads every
+    list; full: the tiles that hold a live row) the rows its filters read —
+    rlen; flags if one of them starts with a wildcard (the ``$`` check);
+    the token rows of their literal (non-``+``) levels within their prefix
+    — then the filter fields and ids read once and the words written once.
+    Operations: each test of a real filter (``flen != -2``) against a live
+    32-bit word of rows costs ~6 plus 2 per literal level of the filter; a
+    word holds one int32 row or two int16 rows (one operation tests both
+    halves), and is live when one of its rows is (``rlen >= 1``). → (bytes,
+    operations)."""
+    lvl = tiles.shape[1] - 3
+    row_bytes = tiles.shape[2] * tiles.element_size()
+    ftok, flen, fprefix, _fhash, fwild = fields
+    real_f = flen != -2
+    lit = ((torch.arange(lvl, device=ftok.device)[None, :] < fprefix[:, None])
+           & (ftok != PLUS_TOK) & real_f[:, None])  # [B, L]
+    # per filter, the rows a test of it reads: its literal token rows,
+    # rlen, flags
+    need = torch.cat([lit, real_f[:, None], ((fwild != 0) & real_f)[:, None]], dim=1)
+    op_f = (6 + 2 * lit.sum(dim=1)) * real_f  # operations per word test
+    live = tiles[:, lvl, :] >= 1
+    if tiles.element_size() == 2:
+        live = live[:, 0::2] | live[:, 1::2]  # rows 2m, 2m+1 share a word
+    live_n = live.sum(dim=1)  # live words per tile
+    in_bytes = sum(f.numel() * 4 for f in fields)
+    if chunk_ids is None:
+        rows_read = int(need.any(dim=0).sum()) * int((live_n > 0).sum())
+        ops = int(live_n.sum()) * int(op_f.sum())
+        out_words = ftok.shape[0] * tiles.shape[0] * WORDS_PER_CHUNK
+    else:
+        ids = chunk_ids.long()
+        real = (ids != 0) & real_f[:, None]
+        # a tile is read once per row whichever of its slots need the row
+        rows_read = sum(torch.unique(ids[real & need[:, r:r + 1]]).numel()
+                        for r in range(need.shape[1]))
+        ops = int((live_n[ids] * op_f[:, None])[real].sum())
+        in_bytes += chunk_ids.numel() * 4
+        out_words = chunk_ids.numel() * WORDS_PER_CHUNK
+    return rows_read * row_bytes + in_bytes + out_words * 4, ops
+
+
+def retained_bound_ms(tiles, fields, chunk_ids=None):
+    """Least time for one retained-scan call: :func:`retained_work`'s bytes
+    over the memory rate, its operations over the FP32 and the integer
+    rates. → (bound ms, "bytes" or "operations", the bound with the
+    operations at the integer rate)."""
+    return _bound(*retained_work(tiles, fields, chunk_ids))

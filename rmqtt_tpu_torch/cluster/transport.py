@@ -219,6 +219,7 @@ class ClusterServer:
         self.handler = handler
         self._server: Optional[asyncio.base_events.Server] = None
         self._conns: set[asyncio.StreamWriter] = set()
+        self._closing = False
 
     @property
     def bound_port(self) -> int:
@@ -229,9 +230,12 @@ class ClusterServer:
 
     async def stop(self) -> None:
         if self._server is not None:
-            self._server.close()
             # drop live peer connections first: wait_closed (py3.12) waits
-            # for the handlers, which would otherwise serve forever
+            # for the handlers, which would otherwise serve forever; a link
+            # accepted before close() whose handler starts after this loop
+            # closes itself in _on_conn (the flag)
+            self._closing = True
+            self._server.close()
             for w in list(self._conns):
                 try:
                     w.close()
@@ -240,6 +244,9 @@ class ClusterServer:
             await self._server.wait_closed()
 
     async def _on_conn(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter):
+        if self._closing:
+            writer.close()
+            return
         self._conns.add(writer)
         wlock = asyncio.Lock()
         pending: set = set()

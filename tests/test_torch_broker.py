@@ -9,6 +9,7 @@ configuration that names any plugin or bridge starts it;
 
 import asyncio
 import collections
+import difflib
 import gc
 import json
 import pathlib
@@ -76,7 +77,12 @@ DELIBERATE = {
                             "live one with the pending calls on it; and a "
                             "call counts a failed send once on the breaker "
                             "(it counted twice, opening it after half its "
-                            "threshold)",
+                            "threshold); ClusterServer.stop sets a closing "
+                            "flag before close(), and a link whose handler "
+                            "starts after that closes itself: stop() closed "
+                            "only the links it knew of, and wait_closed() "
+                            "(py3.12) waited forever for one accepted just "
+                            "before close()",
     "cluster/raft.py": "a vote request closes the node's breaker to the "
                        "candidate: a leader whose breaker opened while a "
                        "peer was down heartbeat the restarted peer only "
@@ -107,6 +113,14 @@ DELIBERATE = {
                            "(NativeEncoder, without the stale-library branches), "
                            "codec and validation, not the match decoders",
     "router/torch_router.py": "TorchRouter, the port of XlaRouter",
+    "bench/scenarios.py": "overload_burst reads its verdict once the broker "
+                          "has taken the whole burst in (publish.received): "
+                          "on the card's device router each publish of a "
+                          "connection is one dispatch, so the broker was "
+                          "still reading the burst when the last pulse was "
+                          "written, and the drops read then missed the "
+                          "backlog (held line for line by "
+                          "test_scenarios_copy_differs_only_in_overload_burst)",
 }
 
 _COPIED = ([p.relative_to(JAX_PKG).as_posix()
@@ -119,7 +133,8 @@ _COPIED = ([p.relative_to(JAX_PKG).as_posix()
               "utils/__init__.py",
               "utils/failpoints.py", "utils/counter.py", "utils/sysmon.py",
               "ops/hybrid.py", "router/default.py", "router/native.py",
-              "router/cache.py", "core/topic.py", "utils/httpc.py", "utils/ec.py"]
+              "router/cache.py", "core/topic.py", "utils/httpc.py", "utils/ec.py",
+              "bench/scenarios.py"]
            + [p.relative_to(JAX_PKG).as_posix()
               for d in ("plugins", "bridge")
               for p in sorted((JAX_PKG / d).glob("*.py"))
@@ -134,6 +149,20 @@ def test_verbatim_copy(rel):
         f"rmqtt_tpu_torch/{rel} is no longer the JAX package's module with "
         "imports rewritten: port the change there too, or list it in "
         "DELIBERATE with its reason")
+
+
+def test_scenarios_copy_differs_only_in_overload_burst():
+    """``bench/scenarios.py`` is the JAX module after the rewrite but for
+    one block of lines inserted into ``overload_burst`` (its DELIBERATE
+    entry)."""
+    want = rewrite((JAX_PKG / "bench/scenarios.py").read_text()).splitlines()
+    got = (PORT_PKG / "bench/scenarios.py").read_text().splitlines()
+    ops = [op for op in difflib.SequenceMatcher(None, want, got, autojunk=False)
+           .get_opcodes() if op[0] != "equal"]
+    assert len(ops) == 1 and ops[0][0] == "insert", ops
+    start = want.index("async def overload_burst(broker, msgs: int = 5000, payload: int = 1024,")
+    end = next(i for i, line in enumerate(want) if line.startswith("async def failpoint_kill("))
+    assert start < ops[0][1] < end
 
 
 def test_every_broker_module_is_ported():

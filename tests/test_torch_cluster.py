@@ -240,10 +240,9 @@ async def _raft_run(pkg: str, subs, topics) -> collections.Counter:
         got = await _collect(clients, sum(_want(subs, topics).values()))
         for c in clients.values():
             await c.disconnect_clean()
-        # the sessions' unsubscribes commit before the nodes stop: a proposal
-        # still retrying would reconnect to a stopping node, and a link
-        # accepted after ClusterServer.stop's close() is never closed, so
-        # its wait_closed() waits forever (both packages)
+        # the sessions' unsubscribes commit before the nodes stop (the JAX
+        # package's ClusterServer.stop can wait forever on a link that a
+        # retrying proposal opens meanwhile)
         await _until(lambda: all(b.ctx.router.routes_count() == 0 for b in brokers),
                      "routes removed")
         return got
@@ -485,6 +484,36 @@ def test_peer_client_counts_a_failed_connect_once(pkg):
     n = breaker.threshold
     assert states[:-1] == [(k, breaker.CLOSED) for k in range(1, n)]
     assert states[-1][1] == breaker.OPEN
+
+
+@pytest.mark.parametrize("pkg", ["torch"])
+def test_cluster_server_stop_closes_a_link_accepted_meanwhile(pkg):
+    """A peer connects just as ``ClusterServer.stop`` runs: the loop has
+    accepted the link, but its handler starts only after ``stop()`` closed
+    the links it knew of. ``stop()`` still returns, because the handler
+    sees the server closing and closes its link. Each yield count between
+    the connect and ``stop()`` lands the call at another step of the
+    accept; on the JAX package's server the counts 3 and 4 wait forever
+    in ``wait_closed()`` (Python 3.12), for the handler of a link nobody
+    closes."""
+    m = PKGS[pkg]
+
+    async def handler(mtype, body, _node):
+        return body
+
+    async def one(yields):
+        server = m.transport.ClusterServer("127.0.0.1", 0, handler)
+        await server.start()
+        with socket.create_connection(("127.0.0.1", server.bound_port)):
+            for _ in range(yields):
+                await asyncio.sleep(0)
+            await asyncio.wait_for(server.stop(), timeout=5.0)
+        return len(server._conns)
+
+    async def run():
+        return [await one(k) for k in range(8)]
+
+    assert asyncio.run(asyncio.wait_for(run(), timeout=60.0)) == [0] * 8
 
 
 @pytest.mark.parametrize("pkg", ["torch"])

@@ -837,3 +837,39 @@ def test_workers_on_cuda_deliver_across(cuda, tmp_path):
         log.close()
     assert got == want and sum(want.values()) > 600
     assert sorted(launched) == [1, 2] and all(n > 0 for n in launched.values())
+
+
+@pytest.mark.cuda
+def test_scenario_kill_profile_on_cuda(cuda, monkeypatch):
+    """The scenario matrix's all-device profile ``storm_churn_overload_kill``
+    through the port: a ``--router xla`` broker subprocess on the card
+    (``RMQTT_HYBRID_MAX=0``, no routing cache) takes a connect storm,
+    subscribe churn, a QoS 0 overload burst and a ``device.dispatch`` kill
+    at once. Green by its own SLO engine, the kill failed over to the host
+    and back to the device with every QoS 1 message delivered, and the
+    broker's words kernel launched (its ``/api/v1/stats``, read just before
+    the profile stops it). ``chip_smoke.py`` phase 6h runs the same."""
+    from rmqtt_tpu_torch.bench import scenarios as SC
+
+    stats = {}
+    stop = SC.ScenarioBroker.stop
+
+    async def stop_after_stats(broker):
+        try:
+            stats.update((await broker.api("/api/v1/stats"))[0]["stats"])
+        finally:
+            await stop(broker)
+
+    monkeypatch.setattr(SC.ScenarioBroker, "stop", stop_after_stats)
+    report = asyncio.run(asyncio.wait_for(
+        SC.run_profile_async("storm_churn_overload_kill"), timeout=150.0))
+    assert report["ok"] is True and report["errors"] == [], report
+    assert [p["name"] for p in report["phases"]] == [
+        "connect_storm", "subscribe_churn", "overload_burst", "failpoint_kill"]
+    assert all(p["ok"] for p in report["phases"]), report["phases"]
+    kill = report["phases"][-1]
+    assert kill["failovers"] >= 1 and kill["triggers"] > 0
+    assert kill["delivered"] == kill["published"]
+    assert kill["failover_state"] == "device"
+    assert report["latency"]["kernel.dispatch"]["count"] > 0
+    assert stats["routing_kernel_launches_packed"] > 0

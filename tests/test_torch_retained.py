@@ -205,7 +205,7 @@ def test_retained_work_counts_a_word_test_per_32_bits(dtype):
     """The bound's operation count: a test per live 32-bit word of rows,
     two int16 rows a word (one operation tests both halves), one int32 row;
     the gather counts only the slots of real tiles, not chunk 0."""
-    from rmqtt_tpu_torch.bench.retained_kernels import retained_work
+    from rmqtt_tpu_torch.bench.roofline_model import retained_work
     lvl = 2
     tiles = np.zeros((2, lvl + 3, 128), dtype=dtype)
     tiles[1, lvl, [0, 1, 2, 9]] = 3  # live rows: words (0, 1), (2, 3), (8, 9)

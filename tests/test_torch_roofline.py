@@ -1,0 +1,59 @@
+"""The port's roofline model (``rmqtt_tpu_torch/bench/roofline_model.py``)
+against the JAX package's: the same dict, key for key, for one partitioned
+table built in each package from the same ``gen_mixed`` filters, with the
+same candidate counts and bandwidth; its default part is the H100's."""
+
+import inspect
+import random
+
+import pytest
+
+import rmqtt_tpu.ops.partitioned as JP
+import rmqtt_tpu_torch.ops.partitioned as TP
+from rmqtt_tpu.bench import roofline_model as JR
+from rmqtt_tpu.core.topic import split_levels
+from rmqtt_tpu_torch.bench import roofline_model as TR
+from rmqtt_tpu_torch.bench.workloads import gen_mixed, gen_topics_uniform
+
+N_FILTERS = 5_000
+N_TOPICS = 512
+
+
+@pytest.fixture(scope="module")
+def tables():
+    rng = random.Random(0)
+    filters = gen_mixed(rng, N_FILTERS)
+    topics = gen_topics_uniform(rng, N_TOPICS)
+    jt, tt = JP.PartitionedTable(), TP.PartitionedTable()
+    for f in filters:
+        assert jt.add(f) == tt.add(f)
+    jn = [len(jt._candidates_for(split_levels(t))) for t in topics]
+    tn = [len(tt._candidates_for(split_levels(t))) for t in topics]
+    assert jn == tn and max(tn) > 1
+    return jt, tt, tn
+
+
+@pytest.mark.parametrize("measured", [None, 123_456.7])
+def test_model_table_equals_the_jax_model(tables, measured):
+    jt, tt, ncs = tables
+    want = JR.model_table(jt, ncs, bw_gbps=JR.V5E_HBM_GBPS,
+                          measured_topics_per_sec=measured)
+    got = TR.model_table(tt, ncs, bw_gbps=TR.V5E_HBM_GBPS,
+                         measured_topics_per_sec=measured)
+    assert list(got) == list(want)
+    assert got == want
+    assert got["tile_bytes_packed"] is not None
+    assert ("measured_fraction_of_ceiling" in got) == (measured is not None)
+
+
+def test_default_part_is_the_h100(tables):
+    _jt, tt, ncs = tables
+    assert TR.V5E_HBM_GBPS == JR.V5E_HBM_GBPS == 819.0
+    assert TR.H100_HBM_GBPS == 3350.0
+    assert inspect.signature(TR.model_table).parameters["bw_gbps"].default == 3350.0
+    at_h100 = TR.model_table(tt, ncs)
+    at_v5e = TR.model_table(tt, ncs, bw_gbps=TR.V5E_HBM_GBPS)
+    assert at_h100["hbm_gbps"] == 3350.0
+    assert at_h100["bytes_per_topic"] == at_v5e["bytes_per_topic"]
+    assert abs(at_h100["ceiling_topics_per_sec"]
+               - at_v5e["ceiling_topics_per_sec"] * 3350.0 / 819.0) <= 5
