@@ -8,9 +8,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
 
 1. device — requires CUDA; prints the card's name and power limit;
 2. build — compiles ``rmqtt_tpu_torch/csrc/*.cu`` (the match-words, the
-   retained-scan and the dense full-scan kernels) with one nvcc call and
-   prints the build time and the ptxas register / shared-memory / spill
-   lines;
+   retained-scan, the dense full-scan and the compaction-tail kernels),
+   one nvcc a source, all at once, then a link, and prints the build time
+   and the ptxas register / shared-memory / spill lines;
 3. kernels — each match-words kernel against its plain PyTorch twin
    (``torch.equal``) at cfg3's shapes (B=16384, NC=32) on the real cfg3
    table and on random tiles, plus edge cases (odd B, NC=1, padded topics,
@@ -22,6 +22,17 @@ Phases, each of which fails the run (nonzero exit, no result line):
    NC=32, and the kernel at the NC split's bucket shapes of that batch
    (their per-batch sum) and on a small set of tiles; bounds at the FP32 and
    the integer rate;
+3t. compaction tails — ``fused_compact_decode`` and ``compact_global``
+   against their plain twins (``torch.equal`` over the whole ``[budget +
+   B]`` wire) on ``bench/tail_cases.py``'s ``CARD_CASES`` (a topic matching
+   every row past a warp's and past a block's shared memory, 65,536 routes
+   sorted in device memory, budgets cutting inside a topic, ``-1`` fids,
+   B = 0 and 1, both wire widths) and on phase 4's table
+   (``bench/tail_kernels.py``): cfg3's words of 16,384 topics with the
+   matcher's budget and with half of it (topics cut), the NC split's
+   buckets of that batch and the broker's batches of 1, 2 and 4 topics
+   (budget 256); each kernel and twin timed by CUDA events and graph
+   replay beside the bounds;
 3r. retained kernels — the gather and the full-stream retained-scan kernels
    against their twins (``torch.equal``) at the scanner's real shapes on
    the 1M-topic retained table (a 64-filter batch of ``run_retained``'s
@@ -104,8 +115,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
    version, then takes 2,000 removes and 2,000 adds as one delta upload
    (into its segments) and routes the topics again, equal; it prints
    topics/s, the words-kernel launches and ``hbm_breakdown()``, and times
-   ``compact_global`` and ``compact_words`` at the 16,384-topic shape and the
-   delta scatter of 64 chunks into a 2,048-chunk segment by CUDA events;
+   ``compact_words`` at the 16,384-topic shape and the delta scatter of 64
+   chunks into a 2,048-chunk segment by CUDA events;
 6. the broker: ``python -m rmqtt_tpu_torch.broker --router xla`` as a child
    process with ``RMQTT_HYBRID_MAX=0`` (every batch on the device), driven
    over TCP by the load client of ``bench/mqtt_load.py``. 6a: 64 subscriber
@@ -193,7 +204,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
 7. one pipelined packed-tile pass under ``torch.profiler``: the device's
    busy share and its time by kernel;
 8. the kernel summary line (launches on each main path, equality with the
-   plain twins, times beside the bound).
+   plain twins, times beside the bound). Each compaction tail must have
+   launched on each of its paths (4, 5, 4s, 4m and the brokers 6a, 6e-6h,
+   whose counts come from their ``/api/v1/stats``:
+   ``routing_kernel_launches_fused_tail``).
 
 Cut to fit the 1,200 s a run may take (PERF.md §4): 6a's and 6e's wave
 to 4,096 of the cfg3 topics (``--wave``), 6f's wave after the restart to
@@ -233,6 +247,7 @@ import torch
 
 from rmqtt_tpu_torch.bench.dense_cases import DENSE_CASES, as_tensors, make_dense_case
 from rmqtt_tpu_torch.bench import scenarios as SC
+from rmqtt_tpu_torch.bench import tail_kernels as TK
 from rmqtt_tpu_torch.bench.mqtt_load import (LoadClient, connect_and_subscribe,
                                              expected_deliveries, oracle_router,
                                              publish_wave)
@@ -250,6 +265,7 @@ from rmqtt_tpu_torch.bench.workloads import (gen_mixed, gen_retained_topics,
                                              gen_topics_uniform, retained_sub_filters)
 from rmqtt_tpu_torch.core.topic import match_filter, parse_shared, split_levels
 from rmqtt_tpu_torch.core.trie import RetainTree, TopicTree
+from rmqtt_tpu_torch.ops import compact_tail as CT
 from rmqtt_tpu_torch.ops import match as DM
 from rmqtt_tpu_torch.ops import match_words as MW
 from rmqtt_tpu_torch.ops import retained_part as RP
@@ -271,6 +287,8 @@ KERNEL_SOURCE = {
     "retained_scan_full": "rmqtt_tpu_torch/csrc/retained_scan.cu",
     "dense_match_packed": "rmqtt_tpu_torch/csrc/dense_match.cu",
     "dense_match_retained": "rmqtt_tpu_torch/csrc/dense_match.cu",
+    "fused_compact_decode": "rmqtt_tpu_torch/csrc/compact_tail.cu",
+    "compact_global": "rmqtt_tpu_torch/csrc/compact_tail.cu",
 }
 REPLACES = {
     "match_words_packed": "rmqtt_tpu/ops/pallas_match.py:288",
@@ -279,7 +297,10 @@ REPLACES = {
     "retained_scan_full": "rmqtt_tpu/ops/retained_part.py:234",
     "dense_match_packed": "rmqtt_tpu/ops/match.py:82",
     "dense_match_retained": "rmqtt_tpu/ops/match.py:176",
+    "fused_compact_decode": "rmqtt_tpu/ops/partitioned.py:1356",
+    "compact_global": "rmqtt_tpu/ops/partitioned.py:1251",
 }
+TAILS = (CT.fused_compact_decode, CT.compact_global)
 
 
 def log(msg: str) -> None:
@@ -489,6 +510,26 @@ def phase_kernels(packed_router: TorchRouter, legacy_router: TorchRouter,
             f"{s['bound_ms']:.4f} ms by {s['bound_by']} with operations at the "
             f"FP32 rate, {s['bound_int_ms']:.4f} ms at the integer rate) over "
             f"{s['cases']} equal cases")
+    return stats
+
+
+def phase_tail_kernels(router: TorchRouter, topics, batch: int) -> dict:
+    """3t: both compaction-tail kernels against their plain twins
+    (``torch.equal`` over the whole wire) on ``CARD_CASES`` and on phase 4's
+    table (``bench/tail_kernels.py``): cfg3's words with the matcher's
+    budget and with half of it, the NC split's buckets, the broker's 1, 2
+    and 4 topics; timed by CUDA events and graph replay beside the twins
+    and the bounds."""
+    log("[3t] the compaction-tail kernels against their plain twins")
+    card = card_line()
+    stats = TK.run(router.matcher, topics, batch, log=log)
+    for name, s in stats.items():
+        log(f"    {name}: {s['ms']:.4f} ms ({s['graph_ms']:.4f} by graph replay) at "
+            f"{s['shape']}, budget {s['budget']} (plain {s['plain_ms']:.3f} ms, "
+            f"{s['plain_graph_ms']} by graph replay; bound {s['bound_ms']:.5f} ms by "
+            f"{s['bound_by']}); the NC split's buckets "
+            f"{s['bucket_graph_ms_per_batch']:.4f} ms a batch by graph replay; "
+            f"{s['cases']} equal cases; {card}")
     return stats
 
 
@@ -1119,9 +1160,10 @@ def phase_modes(packed_router: TorchRouter, legacy_router: TorchRouter, filters,
 
 
 def _time_mode_programs(router, topics, batch: int, card: str) -> dict:
-    """``compact_global`` and ``compact_words`` at the 16,384-topic shape
-    (phase 4's words of one batch) and the delta scatter of 64 chunks into
-    a 2,048-chunk segment, by CUDA events, beside their bounds by bytes."""
+    """``compact_words`` at the 16,384-topic shape (phase 4's words of one
+    batch) and the delta scatter of 64 chunks into a 2,048-chunk segment,
+    by CUDA events, beside their bounds by bytes (``compact_global`` is
+    timed in 3t)."""
     t = router.table
     st = router.matcher._refresh()
     ttok, tlen, tdollar, cids, _nc = t.encode_topics(topics[:batch], pad_batch_to=batch)
@@ -1132,14 +1174,8 @@ def _time_mode_programs(router, topics, batch: int, card: str) -> dict:
                                   st.layout)
     MW.match_words_packed.launches = n0  # a timing input, not a path's launch
     b, w = words.shape
-    g = router.matcher._budget_for(batch, cids.shape[1])
     wbytes = words.numel() * 4
     out = {}
-    wire = PP.compact_global(words, g)
-    out["compact_global"] = {
-        "ms": time_cuda(lambda: PP.compact_global(words, g), reps=20),
-        "bound_ms": (wbytes + wire.numel() * wire.element_size()) / HBM_BYTES_PER_S * 1e3,
-        "library_ms": None, "shape": [b, w], "budget": g}
     kw = min(32, w)
     out["compact_words"] = {
         "ms": time_cuda(lambda: PP.compact_words(words, 32), reps=20),
@@ -1659,7 +1695,8 @@ def _device_delta(before: dict, after: dict) -> dict:
     keys = ("routing_dispatches", "routing_fused_batches", "routing_failovers",
             "routing_switchbacks", "routing_failover_host_routed",
             "routing_uploads", "routing_delta_uploads",
-            "routing_kernel_launches_packed", "routing_kernel_launches_legacy")
+            "routing_kernel_launches_packed", "routing_kernel_launches_legacy",
+            "routing_kernel_launches_fused_tail", "routing_kernel_launches_compact_global")
     return {k: after[k] - before[k] for k in keys}
 
 
@@ -1721,9 +1758,11 @@ def _check_device_profile(p0: dict, p1: dict, s0: dict, s1: dict) -> dict:
 
 def _all_on_device(d: dict, after: dict) -> bool:
     """Every routing batch of a wave ran on the device: as many device
-    batches as dispatches or more (the start-up prewarm also matches), no
-    item routed on the host trie, no failover, the breaker closed."""
+    batches as dispatches or more (the start-up prewarm also matches), the
+    fused tail's kernel launched, no item routed on the host trie, no
+    failover, the breaker closed."""
     return (d["routing_fused_batches"] >= d["routing_dispatches"] > 0
+            and d["routing_kernel_launches_fused_tail"] > 0
             and d["routing_failover_host_routed"] == 0
             and d["routing_failovers"] == 0 and after["routing_failover_state"] == 0)
 
@@ -1806,6 +1845,7 @@ async def _broker_drive(dev_broker, hybrid_broker, subs, waves, plugin) -> dict:
                deliveries_per_s=n_del / secs, publishes_per_s=len(topics) / secs,
                launches_packed=d["routing_kernel_launches_packed"],
                launches_legacy=d["routing_kernel_launches_legacy"],
+               launches_tail=d["routing_kernel_launches_fused_tail"],
                dispatches=d["routing_dispatches"], fused_batches=d["routing_fused_batches"])
     log(f"    6a: {len(topics)} publishes -> {n_del} deliveries, first publish to "
         f"last delivery {secs:.3f} s = {n_del / secs:.1f} messages/s delivered "
@@ -2233,6 +2273,7 @@ async def _fabric_drive(broker, subs, wave, alongside) -> tuple:
         raise AssertionError(f"6e: no publish was submitted to the owner: {served}")
     out.update(publishes=len(topics), deliveries=n_del, publish_s=secs,
                deliveries_per_s=n_del / secs, launches_packed=d["routing_kernel_launches_packed"],
+               launches_tail=d["routing_kernel_launches_fused_tail"],
                dispatches=d["routing_dispatches"], topics_per_batch=len(topics) / d["routing_dispatches"],
                submitted=served, owner_submit_fallbacks=f1["counters"]["submit_fallbacks"],
                registered_workers=f1["registered_workers"])
@@ -2313,6 +2354,7 @@ async def _recovery_drive(broker, subs, wave, filters, replay_want) -> dict:
     n_del = sum(got.values()) + sum(got1.values())
     out.update(publishes=len(topics), deliveries=n_del, publish_s=secs,
                deliveries_per_s=n_del / secs, launches_packed=d["routing_kernel_launches_packed"],
+               launches_tail=d["routing_kernel_launches_fused_tail"],
                dispatches=d["routing_dispatches"])
     log(f"    6f: first publish after the restart delivered in "
         f"{out['first_publish_s'] * 1e3:.3f} ms (its dispatch record {out['first_dispatch']}; "
@@ -2915,7 +2957,9 @@ class PluginPhase:
                    wave_deliveries_per_s=sum(got.values()) / secs,
                    wave_batches=d["routing_dispatches"],
                    launches_packed=(d["routing_kernel_launches_packed"]
-                                    + out["traffic"]["routing_kernel_launches_packed"]))
+                                    + out["traffic"]["routing_kernel_launches_packed"]),
+                   launches_tail=(d["routing_kernel_launches_fused_tail"]
+                                  + out["traffic"]["routing_kernel_launches_fused_tail"]))
         log(f"    6g wave: {len(topics)} publishes -> {sum(got.values())} deliveries in "
             f"{secs:.3f} s ({sum(got.values()) / secs:.1f} messages/s); "
             f"{d['routing_dispatches']} routing batches (sys-topic's among them), "
@@ -3017,8 +3061,9 @@ def check_scenario(report: dict, stats: dict) -> None:
                              f"losslessly: {kill}")
     if report["latency"].get("kernel.dispatch", {}).get("count", 0) <= 0:
         raise AssertionError("6h: no kernel.dispatch recorded: no batch reached the card")
-    if stats.get("routing_kernel_launches_packed", 0) <= 0:
-        raise AssertionError(f"6h: the broker launched no words kernel: "
+    if min(stats.get("routing_kernel_launches_packed", 0),
+           stats.get("routing_kernel_launches_fused_tail", 0)) <= 0:
+        raise AssertionError(f"6h: the broker launched no words or fused-tail kernel: "
                              f"{ {k: v for k, v in stats.items() if 'kernel' in k} }")
 
 
@@ -3135,14 +3180,18 @@ def main(argv=None) -> int:
     GC_TIME.install()
 
     stats = timed("3", phase_kernels, packed_router, legacy_router, topics, args.batch, dev)
+    stats.update(timed("3t", phase_tail_kernels, packed_router, topics, args.batch))
 
     MW.match_words_packed.launches = 0
     MW.match_words_legacy.launches = 0
+    for k in TAILS:
+        k.launches = 0
     want_filters, cfg3_nums = timed("4", phase_cfg3, packed_router, tree, filters,
                                     topics, args.batch, args.sample, args.churn,
                                     args.seed)
     launches = {"match_words_packed": MW.match_words_packed.launches,
-                "match_words_legacy": MW.match_words_legacy.launches}
+                "match_words_legacy": MW.match_words_legacy.launches,
+                "fused_compact_decode": CT.fused_compact_decode.launches}
     del tree
     encode = timed("4e", phase_encode, packed_router, topics, args.batch, cfg3_nums)
 
@@ -3159,8 +3208,11 @@ def main(argv=None) -> int:
 
     MW.match_words_packed.launches = 0
     MW.match_words_legacy.launches = 0
+    for k in TAILS:
+        k.launches = 0
     timed("5", phase_legacy, legacy_router, topics, args.batch, want_filters)
     launches["match_words_legacy"] = MW.match_words_legacy.launches
+    tails = {"5": {k.__name__: k.launches for k in TAILS}}
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} was never launched on its path")
@@ -3178,14 +3230,20 @@ def main(argv=None) -> int:
                   args.batch, want_filters, args.churn, args.seed, sub_filters,
                   retained.pop("results"))
     del want_filters
+    for k in TAILS:
+        k.launches = 0
     sharded = timed("4s", phase_sharded, dense_router, packed_router, topics,
                     args.batch, filters, dev)
+    tails["4s"] = {k.__name__: k.launches for k in TAILS}
     del dense_router, dscanner, perm
     torch.cuda.empty_cache()
     MW.match_words_packed.launches = 0
     MW.match_words_legacy.launches = 0
+    for k in TAILS:
+        k.launches = 0
     modes = timed("4m", phase_modes, packed_router, legacy_router, filters, topics,
                   args.batch, args.churn, args.seed)
+    tails["4m"] = {k.__name__: k.launches for k in TAILS}
     del legacy_router  # the broker phase needs the room
 
     # the brokers run in child processes: their launches are the
@@ -3230,6 +3288,25 @@ def main(argv=None) -> int:
         for path, n in paths.items():
             if n <= 0 and ("4d" in path or "4s" in path):
                 raise AssertionError(f"{name} was never launched on its path {path}")
+    by_path["fused_compact_decode"] = {
+        "router, phase 4": launches["fused_compact_decode"],
+        "router with RMQTT_PACKED=0, phase 5": tails["5"]["fused_compact_decode"],
+        "sharded partitioned matcher and mesh router, phase 4s":
+        tails["4s"]["fused_compact_decode"],
+        "router modes, phase 4m": tails["4m"]["fused_compact_decode"],
+        "broker, phase 6a": broker["launches_tail"],
+        "fabric owner, phase 6e": fabric["launches_tail"],
+        "recovered broker, phase 6f": recovered["launches_tail"],
+        "plugin broker, phase 6g": plugin["launches_tail"],
+        "scenario broker, phase 6h":
+        scenario["broker_stats"]["routing_kernel_launches_fused_tail"]}
+    by_path["compact_global"] = {
+        "router modes, phase 4m": tails["4m"]["compact_global"],
+        "sharded partitioned matcher, phase 4s": tails["4s"]["compact_global"]}
+    for name in ("fused_compact_decode", "compact_global"):
+        for path, n in by_path[name].items():
+            if n <= 0:
+                raise AssertionError(f"{name} was never launched on its path {path}")
     for mode in ("gather", "full"):
         name = f"retained_scan_{mode}"
         by_path[name] = {"scanner at 1M, phase 4r": launches[name],
@@ -3256,6 +3333,11 @@ def main(argv=None) -> int:
         if "small_set_ms" in s:
             row.update(small_set_ms=s["small_set_ms"],
                        bucket_ms_per_batch=sum(ms for *_, ms in s["bucket_ms"]))
+        elif "plain_graph_ms" in s:  # the tails
+            row.update(shape=s["shape"], budget=s["budget"],
+                       plain_graph_ms=s["plain_graph_ms"],
+                       bucket_graph_ms_per_batch=s["bucket_graph_ms_per_batch"],
+                       graph_ms_by_shape={k: r["graph_ms"] for k, r in s["shapes"].items()})
         else:
             row.update({k: s[k] for k in ("shape", "one_filter") if k in s})
         kernels.append(row)
@@ -3272,7 +3354,12 @@ def main(argv=None) -> int:
         f"{ {k: round(v, 1) for k, v in dense['small_topics_per_s'].items()} } at 1 and 8, "
         f"dense retained {dense['scans_per_s']:.1f} scans/s; 3d match_words / "
         f"match_compact ms {dense_programs['match_words']['ms']:.4f} / "
-        f"{dense_programs['match_compact']['ms']:.4f}; 4s topics/s first / warm "
+        f"{dense_programs['match_compact']['ms']:.4f}; 3t fused tail / compact_global "
+        f"ms {stats['fused_compact_decode']['ms']:.4f} / {stats['compact_global']['ms']:.4f} "
+        f"(graph {stats['fused_compact_decode']['graph_ms']:.4f} / "
+        f"{stats['compact_global']['graph_ms']:.4f}; plain "
+        f"{stats['fused_compact_decode']['plain_ms']:.3f} / "
+        f"{stats['compact_global']['plain_ms']:.3f}); 4s topics/s first / warm "
         f"{ {k: [round(x, 1) for x in v] for k, v in sharded['modes'].items()} }; "
         f"6a deliveries/s {broker['deliveries_per_s']:.1f} "
         f"with the profiler seams live; 6e deliveries/s {fabric['deliveries_per_s']:.1f} "
@@ -3282,8 +3369,11 @@ def main(argv=None) -> int:
         f"{plugin['subscribe_s']:.3f} s, wave {plugin['wave_deliveries_per_s']:.1f} "
         f"deliveries/s, restart to listening {plugin['restart_to_listening_s']:.3f} s "
         f"(retainer load {plugin['retainer_load_ms']:.0f} ms); 6h {SCENARIO_PROFILE} "
-        f"{scenario['duration_s']} s, kernel.dispatch p99 "
-        f"{scenario['latency']['kernel.dispatch']['p99_ms']} ms; CUDA probe s "
+        f"{scenario['duration_s']} s, kernel.dispatch p50/p99 "
+        f"{scenario['latency']['kernel.dispatch']['p50_ms']}/"
+        f"{scenario['latency']['kernel.dispatch']['p99_ms']} ms; 6c lone p50/p99 "
+        f"{broker['lone_ms_device'][0]:.3f}/{broker['lone_ms_device'][1]:.3f} ms "
+        f"(device); CUDA probe s "
         f"{broker['probe_s']} {rbroker['probe_s']:.3f} {fabric['probe_s']} "
         f"{recovered['probe_s']:.3f} {plugin['probe_s']:.3f}")
     print(json.dumps({"kernels": kernels}), flush=True)

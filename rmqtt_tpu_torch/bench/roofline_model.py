@@ -1,7 +1,8 @@
 """The port's roofline numbers in one place: the analytic device-memory
 model of the partitioned match (``model_table``), and the least time the
 card could take for one call of each hand-written kernel
-(``words_bound_ms``, ``dense_bound_ms``, ``retained_bound_ms``).
+(``words_bound_ms``, ``dense_bound_ms``, ``retained_bound_ms``,
+``fused_tail_bound_ms``, ``compact_global_bound_ms``).
 
 ``chip_smoke.py`` phase 4 calls ``model_table`` against the live 1M-filter
 packed table with the candidate counts of the first 2,048 topics and the
@@ -193,3 +194,55 @@ def retained_bound_ms(tiles, fields, chunk_ids=None):
     rates. → (bound ms, "bytes" or "operations", the bound with the
     operations at the integer rate)."""
     return _bound(*retained_work(tiles, fields, chunk_ids))
+
+
+def _kept(cnts: torch.Tensor, budget: int) -> torch.Tensor:
+    """Each topic's kept routes: ``clamp(budget - off, 0, cnt)``, ``off``
+    the exclusive scan of the counts (int64)."""
+    c = cnts.to(torch.int64)
+    off = torch.cumsum(c, 0) - c
+    return torch.minimum((budget - off).clamp(min=0), c)
+
+
+def fused_tail_work(words, chunk_ids, cnts, budget: int):
+    """What one fused-tail call (``fused_compact_decode``) on these inputs
+    must do. Bytes: the words and the chunk ids read once, one fid read a
+    kept route, the ``[budget + B]`` int32 wire written once. Operations:
+    2 a word (its popcount, the sum), 2 a topic (the scan), and a kept
+    route ~4 (its row's address and slot) plus the compares of a
+    comparison sort of its topic's kept routes (log2 of their count).
+    ``cnts``: the topics' route counts (the wire's tail). → (bytes,
+    operations)."""
+    b = words.shape[0]
+    k = _kept(cnts, budget)
+    n = int(k.sum())
+    lg = torch.log2(k.clamp(min=1).to(torch.float64)).ceil()
+    ops = 2 * words.numel() + 2 * b + 4 * n + int((k * lg).sum())
+    nbytes = (words.numel() + chunk_ids.numel() + n + budget + b) * 4
+    return nbytes, ops
+
+
+def fused_tail_bound_ms(words, chunk_ids, cnts, budget: int):
+    """Least time for one fused-tail call: :func:`fused_tail_work`'s bytes
+    over the memory rate, its operations over the FP32 and the integer
+    rates. → (bound ms, "bytes" or "operations", the bound with the
+    operations at the integer rate)."""
+    return _bound(*fused_tail_work(words, chunk_ids, cnts, budget))
+
+
+def compact_global_work(words, cnts, budget: int):
+    """What one ``compact_global`` call on these inputs must do. Bytes: the
+    words read once and the ``[budget + B]`` wire written once, 2 bytes a
+    slot while ``W*32 < 0x10000``, else 4. Operations: 2 a word, 2 a topic
+    and 2 a kept route (its value and slot). → (bytes, operations)."""
+    b, w = words.shape
+    n = int(_kept(cnts, budget).sum())
+    elem = 2 if w * 32 < 0x10000 else 4
+    return words.numel() * 4 + (budget + b) * elem, 2 * words.numel() + 2 * b + 2 * n
+
+
+def compact_global_bound_ms(words, cnts, budget: int):
+    """Least time for one ``compact_global`` call, as
+    :func:`fused_tail_bound_ms`. → (bound ms, "bytes" or "operations",
+    the bound with the operations at the integer rate)."""
+    return _bound(*compact_global_work(words, cnts, budget))

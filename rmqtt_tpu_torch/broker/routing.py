@@ -180,10 +180,14 @@ class RoutingService:
             "routing_stage_fetch_ms_total": d.get("stage_fetch_ms_total", 0.0),
             "routing_stage_decode_ms_total": d.get("stage_decode_ms_total", 0.0),
             # hand-kernel launches in this process (TorchRouter.device_stats,
-            # ops/match_words.py counters): which words kernel the device
-            # plane ran; zeros for routers without a device matcher
+            # ops/match_words.py and ops/compact_tail.py counters): which
+            # words kernel and which compaction tail the device plane ran;
+            # zeros for routers without a device matcher
             "routing_kernel_launches_packed": d.get("kernel_launches_packed", 0),
             "routing_kernel_launches_legacy": d.get("kernel_launches_legacy", 0),
+            "routing_kernel_launches_fused_tail": d.get("kernel_launches_fused_tail", 0),
+            "routing_kernel_launches_compact_global": d.get(
+                "kernel_launches_compact_global", 0),
             # device-plane failover gauges (broker/failover.py): zeros when
             # failover is not wired so the surface stays shape-stable.
             # state: 0 = device (healthy), 1 = host fallback, 2 = probing

@@ -1,12 +1,13 @@
 """Build and load the hand-written CUDA kernels.
 
-One ``nvcc`` call compiles every source of ``rmqtt_tpu_torch/csrc/``
-(``match_words.cu``, ``retained_scan.cu``, ``dense_match.cu``) into one
-shared library with a
-plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a build
-takes seconds). The library lands in ``rmqtt_tpu_torch/_build/`` under a
-name keyed on a hash of the sources and the flags, so an edited source
-rebuilds and an unchanged one loads the library already built. Nothing here runs at import time: the first kernel
+One ``nvcc`` a source compiles every source of ``rmqtt_tpu_torch/csrc/``
+(``match_words.cu``, ``retained_scan.cu``, ``dense_match.cu``,
+``compact_tail.cu``), all started together, and one more links them into
+one shared library with a plain C interface, loaded with ``ctypes`` (no
+PyTorch headers, so a build takes seconds). The library lands in
+``rmqtt_tpu_torch/_build/`` under a name keyed on a hash of the sources
+and the flags, so an edited source rebuilds and an unchanged one loads the
+library already built. Nothing here runs at import time: the first kernel
 launch calls :func:`kernel_library`.
 """
 
@@ -25,12 +26,10 @@ from typing import Optional
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = (_PKG / "csrc" / "match_words.cu", _PKG / "csrc" / "retained_scan.cu",
-           _PKG / "csrc" / "dense_match.cu")
+           _PKG / "csrc" / "dense_match.cu", _PKG / "csrc" / "compact_tail.cu")
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -59,6 +58,13 @@ _SIGNATURES = {
     # out, stream
     "launch_dense_match_retained": (_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I,
                                     _P, _P),
+    # b → bytes of the tails' scratch
+    "compact_tail_scratch_bytes": (_I,),
+    # words, w, fid_rows, fid_chunks, chunk_ids, nc, b, budget, out, scratch,
+    # stream
+    "launch_fused_compact_decode": (_P, _I, _P, _I, _P, _I, _I, _I, _P, _P, _P),
+    # words, w, b, budget, out, wide, scratch, stream
+    "launch_compact_global": (_P, _I, _I, _I, _P, _I, _P, _P),
 }
 
 
@@ -107,15 +113,33 @@ def _nvcc() -> str:
 def _build(sources, so: Path, log_path: Path) -> tuple:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(s) for s in sources)]
+    objs = [so.with_suffix(f".{os.getpid()}.{i}.o") for i in range(len(sources))]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    secs = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+            for o, src in zip(objs, sources)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    log = "".join(outs)
+    try:
+        for cmd, proc, out in zip(cmds, procs, outs):
+            if proc.returncode != 0:
+                raise KernelError(
+                    f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{out}")
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise KernelError(
+                f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{log}")
+    except KernelError:
         tmp.unlink(missing_ok=True)
-        raise KernelError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{log}")
+        raise
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+    secs = time.perf_counter() - t0
     log_path.write_text(log)
     os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
     return log, secs

@@ -13,8 +13,9 @@ Its device half runs on torch tensors:
 1. the words producer — the hand-written CUDA kernels of
    ``ops/match_words.py`` (packed or legacy tiles) — tests every topic's
    candidate chunks and packs 32 row results per word;
-2. a compaction of the words, by mode: ``fused_compact_decode`` (the
-   default) compacts the nonzero words and set bits of the whole batch
+2. a compaction of the words, by mode — hand-written CUDA kernels of
+   ``ops/compact_tail.py`` for the global modes: ``fused_compact_decode``
+   (the default) compacts the nonzero words and set bits of the whole batch
    into one slot budget, resolves each matched row to its filter id
    through the device-resident row→fid map and sorts by (topic, fid), so
    the host's whole decode is one ``np.split``; ``compact_global`` (the
@@ -59,6 +60,10 @@ from rmqtt_tpu_torch.ops.encode import (
     UNK_TOK,
     group_byte_planes,
 )
+from rmqtt_tpu_torch.ops.compact_tail import (_popcount32, compact_global,
+                                              compact_global_plain,
+                                              fused_compact_decode,
+                                              fused_compact_decode_plain)
 # CHUNK = 128 rows per tile (4 words): the JAX package's constant; some of
 # its docstrings say 256, which is wrong
 from rmqtt_tpu_torch.ops.match_words import CHUNK, WORDS_PER_CHUNK, words_any
@@ -1130,70 +1135,6 @@ def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 # ------------------------------------------------- fused device pipeline
-def _popcount32(words: torch.Tensor) -> torch.Tensor:
-    """Set bits of each int32 word (as uint32) → int64. PyTorch has no
-    popcount: this is the SWAR bit count on int64."""
-    x = words.to(torch.int64) & 0xFFFFFFFF
-    x = x - ((x >> 1) & 0x55555555)
-    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
-    x = (x + (x >> 4)) & 0x0F0F0F0F
-    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
-
-
-def fused_compact_decode(words: torch.Tensor, fid_rows: torch.Tensor,
-                         chunk_ids: torch.Tensor, budget: int) -> torch.Tensor:
-    """Match words → final per-topic fid buffer, entirely on the device
-    (twin of the JAX ``fused_compact_decode_impl``).
-
-    1. word compaction — an exclusive prefix sum over the nonzero-word mask
-       gives each nonzero word a slot of the shared ``budget``; the slot
-       remembers the word's flat index (topic, word) and its bits;
-    2. route expansion — a second prefix sum over the compacted words' set
-       bits gives each matched row a slot; the row's global id
-       ``chunk_ids[topic, w//4]*CHUNK + (w%4)*32 + bit`` resolves to its
-       fid through ``fid_rows``;
-    3. one sort on the int64 key ``topic * 2**32 + (fid + 2**31)`` puts the
-       buffer in (topic, fid) order — the offset keeps the signed order, so
-       a -1 fid (a cleared row) sorts exactly as in JAX's two-key sort.
-
-    Slots past the budget go to a sentinel slot ``budget`` that is sliced
-    off (JAX drops them with ``mode="drop"``). Unfilled slots carry the
-    sentinel topic B and sort last. Counts come from the words' popcount,
-    independent of the budget, so ``cnts.sum() > budget`` signals overflow.
-    → ``[budget + B]`` int32 ``[fids..., cnts...]``."""
-    b, w = words.shape
-    dev = words.device
-    cnts = _popcount32(words).sum(dim=1)
-    if b == 0:
-        return torch.zeros(budget, dtype=torch.int32, device=dev)
-    cid = chunk_ids.to(torch.int64)
-    flat = words.reshape(-1)
-    nz = flat != 0
-    nzi = nz.to(torch.int64)
-    pos = torch.cumsum(nzi, 0) - nzi
-    idx = torch.where(nz & (pos < budget), pos, budget)
-    src = torch.zeros(budget + 1, dtype=torch.int64, device=dev)
-    src[idx] = torch.arange(b * w, dtype=torch.int64, device=dev)
-    bits = torch.zeros(budget + 1, dtype=torch.int32, device=dev)
-    bits[idx] = flat
-    src, bits = src[:budget], bits[:budget]
-    wtop, widx = src // w, src % w  # unfilled slots: (0, 0) with no bits
-    lanes = torch.arange(32, dtype=torch.int32, device=dev)
-    rnzi = ((bits[:, None] >> lanes) & 1).reshape(-1).to(torch.int64)
-    rpos = torch.cumsum(rnzi, 0) - rnzi
-    ridx = torch.where((rnzi > 0) & (rpos < budget), rpos, budget)
-    wpc = WORDS_PER_CHUNK
-    rows = (cid[wtop, widx // wpc] * CHUNK + (widx % wpc) * 32)[:, None] + lanes
-    fvals = fid_rows.reshape(-1)[rows.reshape(-1)].to(torch.int64)
-    tj = torch.full((budget + 1,), b, dtype=torch.int64, device=dev)
-    tj[ridx] = wtop[:, None].expand(budget, 32).reshape(-1)
-    fids = torch.zeros(budget + 1, dtype=torch.int64, device=dev)
-    fids[ridx] = fvals
-    key = tj[:budget] * (1 << 32) + (fids[:budget] + (1 << 31))
-    fid_s = (torch.sort(key).values & 0xFFFFFFFF) - (1 << 31)
-    return torch.cat([fid_s.to(torch.int32), cnts.to(torch.int32)])
-
-
 class Fused(NamedTuple):
     """One fused dispatch: the ``[budget + B]`` wire plus the words and the
     per-topic chunk ids it was decoded from, so a budget regrow re-runs
@@ -1208,17 +1149,17 @@ def match_fused(tiles, fid_rows, ttok, tlen, tdollar, chunk_ids, budget: int,
                 layout: Optional[PackedLayout] = None,
                 use_kernel: bool = True) -> Fused:
     """Words (kernel) → global compaction → fid decode + sort (twin of the
-    JAX ``match_fused_impl``)."""
+    JAX ``match_fused_impl``); ``use_kernel`` False runs both plain twins."""
+    tail = fused_compact_decode if use_kernel else fused_compact_decode_plain
     if not _DEVPROF.enabled:
         words = words_any(tiles, ttok, tlen, tdollar, chunk_ids, layout=layout,
                           use_kernel=use_kernel)
-        return Fused(fused_compact_decode(words, fid_rows, chunk_ids, budget),
-                     words, chunk_ids)
+        return Fused(tail(words, fid_rows, chunk_ids, budget), words, chunk_ids)
     name = "match_words_packed" if layout is not None else "match_words_legacy"
     words = _pj(name if use_kernel else name + "_plain", words_any, tiles, ttok,
                 tlen, tdollar, chunk_ids, layout=layout, use_kernel=use_kernel)
-    return Fused(_pj("fused_compact_decode", fused_compact_decode, words,
-                     fid_rows, chunk_ids, budget), words, chunk_ids)
+    return Fused(_pj(tail.__name__, tail, words, fid_rows, chunk_ids, budget),
+                 words, chunk_ids)
 
 
 def match_fused_grouped(tiles, fid_rows, ttok, tlen, tdollar, uniq_cand, inv,
@@ -1282,48 +1223,6 @@ def _unsigned(arr: np.ndarray) -> np.ndarray:
     return arr.view(np.uint16 if arr.dtype == np.int16 else np.uint32)
 
 
-def compact_global(words: torch.Tensor, budget: int) -> torch.Tensor:
-    """Match words → batch-global ROUTE compaction (twin of the JAX
-    ``compact_global_impl``), the unfused global path's device program:
-
-    1. word compaction — an exclusive prefix sum over the nonzero-word mask
-       gives each nonzero word a slot of the shared ``budget``; the slot
-       keeps the word's index within its topic and its bits;
-    2. route expansion — a second prefix sum over the compacted words' set
-       bits gives each matched row a slot holding ``widx*32 + bit``.
-
-    Slots fill in flat (topic, word, bit) order, so the per-topic counts
-    reattribute them on the host. Slots past the budget go to a sentinel
-    slot ``budget`` that is sliced off (JAX drops them with
-    ``mode="drop"``); counts come from the words' popcount, so
-    ``cnts.sum() > budget`` signals overflow. One width for routes and
-    counts, as in JAX: 16 bits while ``w*32 < 0x10000`` (a count can reach
-    ``w*32``), else 32, held in int16 / int32 (``_unsigned`` reads them as
-    the JAX package's uint16 / uint32). → ``[budget + B]``
-    ``[routes..., cnts...]``."""
-    b, w = words.shape
-    dev = words.device
-    cnts = _popcount32(words).sum(dim=1)
-    flat = words.reshape(-1)
-    nz = flat != 0
-    nzi = nz.to(torch.int64)
-    pos = torch.cumsum(nzi, 0) - nzi
-    idx = torch.where(nz & (pos < budget), pos, budget)
-    widx = torch.zeros(budget + 1, dtype=torch.int64, device=dev)
-    widx[idx] = torch.arange(w, dtype=torch.int64, device=dev).repeat(b)
-    bits = torch.zeros(budget + 1, dtype=torch.int32, device=dev)
-    bits[idx] = flat
-    widx, bits = widx[:budget], bits[:budget]
-    lanes = torch.arange(32, dtype=torch.int32, device=dev)
-    rnzi = ((bits[:, None] >> lanes) & 1).reshape(-1).to(torch.int64)
-    rpos = torch.cumsum(rnzi, 0) - rnzi
-    ridx = torch.where((rnzi > 0) & (rpos < budget), rpos, budget)
-    routes = torch.zeros(budget + 1, dtype=torch.int64, device=dev)
-    routes[ridx] = (widx[:, None] * 32 + lanes).reshape(-1)
-    wire = torch.cat([routes[:budget], cnts])
-    return wire.to(torch.int16 if w * 32 < 0x10000 else torch.int32)
-
-
 class Unfused(NamedTuple):
     """One unfused dispatch: the wire plus the words it compacts, so a
     regrow re-runs only the compaction on the same words."""
@@ -1336,10 +1235,11 @@ def match_global(tiles, ttok, tlen, tdollar, chunk_ids, budget: int,
                  layout: Optional[PackedLayout] = None,
                  use_kernel: bool = True) -> Unfused:
     """Words (kernel) → global route compaction (twin of the JAX
-    ``match_global_impl``)."""
+    ``match_global_impl``); ``use_kernel`` False runs both plain twins."""
     words = words_any(tiles, ttok, tlen, tdollar, chunk_ids, layout=layout,
                       use_kernel=use_kernel)
-    return Unfused(compact_global(words, budget), words)
+    tail = compact_global if use_kernel else compact_global_plain
+    return Unfused(tail(words, budget), words)
 
 
 def match_global_grouped(tiles, ttok, tlen, tdollar, uniq_cand, inv, budget: int,
@@ -1709,11 +1609,12 @@ class PartitionedMatcher:
       ``torch.OutOfMemoryError`` is caught: a wider catch on CUDA would
       swallow a broken device.
 
-    Every mode's words come from the hand-written kernels on a CUDA device
-    (no verify-and-race, no fallback); ``use_kernel = False`` runs the
-    plain words twin instead, which the on-card reference check of
-    ``chip_smoke.py`` uses. The compactions and the segment scatters are
-    torch ops. A handle carries its own budget (global) or ``max_words``
+    Every mode's words, and the global modes' compactions
+    (``fused_compact_decode``, ``compact_global``), come from the
+    hand-written kernels on a CUDA device (no verify-and-race, no
+    fallback); ``use_kernel = False`` runs their plain twins instead, which
+    the on-card reference check of ``chip_smoke.py`` uses. The topk
+    compaction and the segment scatters are torch ops. A handle carries its own budget (global) or ``max_words``
     (topk), so a sticky widening by a later handle never masks its
     truncation.
 
@@ -2205,13 +2106,12 @@ class PartitionedMatcher:
                                       self.use_kernel)
         return ("f", b, out, g, fids)
 
-    @staticmethod
-    def _redecode(words, fids, chunk_ids, g: int) -> torch.Tensor:
+    def _redecode(self, words, fids, chunk_ids, g: int) -> torch.Tensor:
         """A budget regrow: the fused tail again on the submit-time words."""
+        tail = fused_compact_decode if self.use_kernel else fused_compact_decode_plain
         if _DEVPROF.enabled:
-            return _pj("fused_compact_decode", fused_compact_decode, words,
-                       fids, chunk_ids, g)
-        return fused_compact_decode(words, fids, chunk_ids, g)
+            return _pj(tail.__name__, tail, words, fids, chunk_ids, g)
+        return tail(words, fids, chunk_ids, g)
 
     def _submit_fused_split(self, tiles, fids, layout, tt, tlen, tdollar,
                             chunk_ids, split):
@@ -2331,12 +2231,12 @@ class PartitionedMatcher:
         # handle must not mask this one's truncation
         return ("g", b, chunk_ids, out, g, fid_base, snap)
 
-    @staticmethod
-    def _recompact(words, g: int) -> torch.Tensor:
+    def _recompact(self, words, g: int) -> torch.Tensor:
         """A budget regrow: ``compact_global`` again on the submit-time words."""
+        tail = compact_global if self.use_kernel else compact_global_plain
         if _DEVPROF.enabled:
-            return _pj("compact_global", compact_global, words, g)
-        return compact_global(words, g)
+            return _pj(tail.__name__, tail, words, g)
+        return tail(words, g)
 
     def _submit_split(self, tiles, layout, tt, tlen, tdollar, chunk_ids, split,
                       fid_base: int, snap: _Snap):

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from rmqtt_tpu_torch.ops._build import kernel_library
+from rmqtt_tpu_torch.ops.compact_tail import compact_global, fused_compact_decode
 from rmqtt_tpu_torch.ops.encode import FilterTable
 from rmqtt_tpu_torch.ops.hybrid import AdaptiveHybrid
 from rmqtt_tpu_torch.ops.match import DenseMatcher
@@ -375,9 +376,12 @@ class TorchRouter(Router):
             "stage_dispatch_ms_total": round(sn.get("dispatch", 0) / 1e6, 3),
             "stage_fetch_ms_total": round(sn.get("fetch", 0) / 1e6, 3),
             "stage_decode_ms_total": round(sn.get("decode", 0) / 1e6, 3),
-            # process-wide launch counters of the words kernels
+            # process-wide launch counters of the words kernels and of the
+            # compaction tails
             "kernel_launches_packed": match_words_packed.launches,
             "kernel_launches_legacy": match_words_legacy.launches,
+            "kernel_launches_fused_tail": fused_compact_decode.launches,
+            "kernel_launches_compact_global": compact_global.launches,
         }
 
     def device_hbm(self) -> Dict[str, float]:

@@ -101,8 +101,10 @@ DELIBERATE = {
                         "counts scans and kernel launches",
     "broker/devprof.py": "the HBM census reads the CUDA allocator instead of "
                          "jax.live_arrays()",
-    "broker/routing.py": "stats() also reports the words kernels' launch "
-                         "counts (routing_kernel_launches_packed/_legacy); a "
+    "broker/routing.py": "stats() also reports the words kernels' and the "
+                         "compaction tails' launch counts "
+                         "(routing_kernel_launches_packed/_legacy/_fused_tail/"
+                         "_compact_global); a "
                          "kernel fault rejects the batch instead of failing "
                          "over to the host trie",
     "broker/failover.py": "a kernel fault in the half-open probe routes on "

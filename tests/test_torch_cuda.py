@@ -1,4 +1,5 @@
-"""The CUDA kernels on a card: each against its plain twin, the router on
+"""The CUDA kernels on a card: each against its plain twin (the compaction
+tails on ``bench/tail_cases.py``'s ``CARD_CASES`` too), the router on
 the card against the same router on the CPU, each hand-selected matcher
 mode (unfused, topk, segmented) against the same mode on the CPU, the
 dense kernels against their twins and the dense router against the
@@ -22,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import rmqtt_tpu_torch.ops.compact_tail as CT
 import rmqtt_tpu_torch.ops.encode as TE
 import rmqtt_tpu_torch.ops.match as DM
 import rmqtt_tpu_torch.ops.match_words as MW
@@ -35,6 +37,7 @@ from rmqtt_tpu_torch.bench.retained_cases import (RETAINED_CASES, TABLE_FILTERS,
                                                   make_retained_case, table_inputs,
                                                   table_topics)
 from rmqtt_tpu_torch.bench.dense_cases import DENSE_CASES, as_tensors, make_dense_case
+from rmqtt_tpu_torch.bench.tail_cases import CARD_CASES, make_tail_case
 from rmqtt_tpu_torch.bench.words_cases import EDGE_CASES, make_case
 from rmqtt_tpu_torch.broker.context import BrokerConfig, ServerContext
 from rmqtt_tpu_torch.broker.server import MqttBroker
@@ -177,7 +180,8 @@ MODES = {
 @pytest.mark.parametrize("mode", list(MODES))
 def test_matcher_modes_on_cuda_equal_cpu(cuda, mode, monkeypatch):
     """Each hand-selected matcher mode on the card (the words kernels, the
-    compactions and segment scatters as torch ops) equals the same matcher
+    global modes' compaction kernels, the topk compaction and segment
+    scatters as torch ops) equals the same matcher
     on the CPU, on a batch big enough for the NC split and on small ones,
     before and after churn (a delta upload on the card, into the segments
     when segmented)."""
@@ -211,6 +215,96 @@ def test_matcher_modes_on_cuda_equal_cpu(cuda, mode, monkeypatch):
     got, want = (m.match(topics) for m in ms)
     assert [g.tolist() for g in got] == [w.tolist() for w in want]
     assert (ms[0].full_uploads, ms[0].delta_uploads) == (1, 1)
+
+
+# ------------------------------------------------- the compaction tails
+def _on(a, dev):
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CARD_CASES, ids=[c.name for c in CARD_CASES])
+def test_tail_kernels_equal_plain_on_cuda(cuda, case):
+    """Both compaction-tail kernels write their twins' whole wire, each
+    launch counted once: topics past a warp's and a block's shared memory,
+    budgets cutting inside a topic, -1 fids, B=1 and B=0, both widths."""
+    words, fids, cids, budget = make_tail_case(case)
+    w, f, c = _on(words, cuda), _on(fids, cuda), _on(cids, cuda)
+    n0 = (CT.fused_compact_decode.launches, CT.compact_global.launches)
+    got = CT.fused_compact_decode(w, f, c, budget)
+    want = CT.fused_compact_decode_plain(w, f, c, budget)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    got = CT.compact_global(w, budget)
+    want = CT.compact_global_plain(w, budget)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    torch.cuda.synchronize()
+    assert (CT.fused_compact_decode.launches, CT.compact_global.launches) == (
+        n0[0] + 1, n0[1] + 1)
+
+
+@pytest.mark.cuda
+def test_tail_kernels_on_unaligned_words_on_cuda(cuda):
+    """Words that start off a 16-byte boundary take the kernels' 4-byte
+    loads and give the same wires."""
+    words, fids, cids, budget = make_tail_case(CARD_CASES[0])
+    flat = torch.zeros(words.size + 1, dtype=torch.int32, device=cuda)
+    flat[1:] = _on(words, cuda).reshape(-1)
+    w = flat[1:].view(words.shape)
+    assert w.is_contiguous() and w.data_ptr() % 16
+    f, c = _on(fids, cuda), _on(cids, cuda)
+    assert torch.equal(CT.fused_compact_decode(w, f, c, budget),
+                       CT.fused_compact_decode_plain(w, f, c, budget))
+    assert torch.equal(CT.compact_global(w, budget), CT.compact_global_plain(w, budget))
+
+
+@pytest.mark.cuda
+def test_tail_wrappers_raise_when_the_library_fails(cuda, monkeypatch):
+    """Given CUDA tensors the tail wrappers launch or raise: a library that
+    does not load makes both raise, and nothing runs the twins instead."""
+    import rmqtt_tpu_torch.ops._build as B
+
+    def broken():
+        raise B.KernelError("cannot load the kernel library")
+
+    words, fids, cids, budget = make_tail_case(CARD_CASES[0])
+    w, f, c = _on(words, cuda), _on(fids, cuda), _on(cids, cuda)
+    monkeypatch.setattr(B, "kernel_library", broken)
+    n0 = (CT.fused_compact_decode.launches, CT.compact_global.launches)
+    with pytest.raises(B.KernelError, match="cannot load"):
+        CT.fused_compact_decode(w, f, c, budget)
+    with pytest.raises(B.KernelError, match="cannot load"):
+        CT.compact_global(w, budget)
+    assert (CT.fused_compact_decode.launches, CT.compact_global.launches) == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [True, False])
+def test_matcher_runs_the_tail_kernels_on_cuda(cuda, fused, monkeypatch):
+    """The matcher's global modes compact through the tail kernels, one
+    launch a bucket, and equal the CPU matcher; ``use_kernel = False`` runs
+    the twins and launches none."""
+    if not fused:
+        monkeypatch.setenv("RMQTT_FUSED", "0")
+    rng = random.Random(5)
+    filters = gen_mixed(rng, 2000)
+    tables = [TP.PartitionedTable(), TP.PartitionedTable()]
+    for t in tables:
+        for f in filters:
+            t.add(f)
+    ms = [TP.PartitionedMatcher(tables[0], device=cuda),
+          TP.PartitionedMatcher(tables[1], device="cpu")]
+    topics = gen_topics_uniform(rng, 1100)
+    counter = CT.fused_compact_decode if fused else CT.compact_global
+    for batch in (topics, topics[:1], topics[:4]):
+        n0 = counter.launches
+        got, want = (m.match(batch) for m in ms)
+        assert counter.launches > n0
+        assert [g.tolist() for g in got] == [w.tolist() for w in want]
+    ms[0].use_kernel = False
+    n0 = counter.launches
+    got = ms[0].match(topics)
+    assert counter.launches == n0
+    assert [g.tolist() for g in got] == [w.tolist() for w in ms[1].match(topics)]
 
 
 # ------------------------------------------- the dense backend, the mesh

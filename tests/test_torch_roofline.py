@@ -57,3 +57,31 @@ def test_default_part_is_the_h100(tables):
     assert at_h100["bytes_per_topic"] == at_v5e["bytes_per_topic"]
     assert abs(at_h100["ceiling_topics_per_sec"]
                - at_v5e["ceiling_topics_per_sec"] * 3350.0 / 819.0) <= 5
+
+
+@pytest.mark.parametrize("budget", [1 << 20, 5])
+def test_tail_bounds(budget):
+    """The tails' bounds count the words and chunk ids once, one fid a kept
+    route and the wire once; a budget below the routes keeps fewer."""
+    import torch
+
+    from rmqtt_tpu_torch.bench.timing import HBM_BYTES_PER_S
+
+    words = torch.zeros((3, 8), dtype=torch.int32)
+    words[0, 0] = 0b1011  # 3 routes
+    words[2, 5] = -1  # 32 routes
+    cids = torch.zeros((3, 2), dtype=torch.int32)
+    cnts = torch.tensor([3, 0, 32])
+    kept = min(budget, 35)
+    nbytes, ops = TR.fused_tail_work(words, cids, cnts, budget)
+    assert nbytes == (24 + 6 + kept + budget + 3) * 4
+    sort = 3 * 2 + 32 * 5 if budget > 35 else 3 * 2 + 2 * 1
+    assert ops == 2 * 24 + 2 * 3 + 4 * kept + sort
+    ms, by, ms_int = TR.fused_tail_bound_ms(words, cids, cnts, budget)
+    assert by == "bytes" and ms == ms_int == nbytes / HBM_BYTES_PER_S * 1e3
+    nbytes, ops = TR.compact_global_work(words, cnts, budget)
+    assert (nbytes, ops) == (24 * 4 + (budget + 3) * 2, 2 * 24 + 2 * 3 + 2 * kept)
+    wide = torch.zeros((1, 2048), dtype=torch.int32)
+    assert TR.compact_global_work(wide, torch.tensor([0]), 4)[0] == 2048 * 4 + 5 * 4
+    ms, by, _ = TR.compact_global_bound_ms(words, cnts, budget)
+    assert by == "bytes" and ms == nbytes / HBM_BYTES_PER_S * 1e3
