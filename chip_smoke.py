@@ -74,17 +74,22 @@ Phases, each of which fails the run (nonzero exit, no result line):
    (``run_retained``'s pattern, 8 rounds), and publish topics/s there;
 5. the same topics through a ``TorchRouter`` on legacy tiles
    (``RMQTT_PACKED=0``), equal to phase 4's results;
-3d. the dense full-scan kernels, after phase 5 — ``dense_match_packed``
-   and ``dense_match_retained`` against their plain twins
-   (``torch.equal``) on the whole dense tables of 4d (1,024 topics against
-   the 1M filters' 2^20 rows; the 64-filter batch against the 2^20 rows of
-   cfg5's retained draws) and on ``bench/dense_cases.py``'s
-   ``DENSE_CASES`` (B = 1 and 3, a capacity of 1,024, two blocks of
-   topics, L = 9, 20 and 40, padded topics and filters, ``$SYS`` rows and
-   topics against ``+``/``#``-first filters, a bare ``#``, ``+/#``, blank
-   levels); the forward timed at B = 16,384 (its twin once, also held to
-   the kernel there), the inverse at the 64-filter batch, by CUDA events
-   and graph replay, beside the bounds;
+3d. the dense kernels, after phase 5 — ``dense_match_packed`` and
+   ``dense_match_retained`` against their plain twins (``torch.equal``) on
+   the whole dense tables of 4d (1,024 topics against the 1M filters' 2^20
+   rows; the 64-filter batch against the 2^20 rows of cfg5's retained
+   draws) and on ``bench/dense_cases.py``'s ``DENSE_CASES`` (B = 1 and 3,
+   a capacity of 1,024, two blocks of topics, 200 topics unpadded, L = 9,
+   20 and 40, padded topics and filters, ``$SYS`` rows and topics against
+   ``+``/``#``-first filters, a bare ``#``, ``+/#``, blank levels);
+   ``dense_match_words`` against its twin (word indices, bits and counts
+   ``torch.equal``) on the forward bitmaps of ``WORDS_CASES`` (B = 1,
+   padded topics, a topic that matches nothing, topics past K, W below
+   ``max_words``) and of 4d's 16,384-topic words batch; the forward timed
+   at B = 16,384 (its twin once, also held to the kernel there) and at the
+   bitmap path's 1 and 8, the inverse at the 64-filter batch, the words
+   kernel at the 16,384-topic batch beside its twin and ``torch.topk`` on
+   the twin's keys, by CUDA events and graph replay, beside the bounds;
 4d. ``TorchRouter(backend="dense")`` over the same 1M filters
    (``RMQTT_HYBRID_MAX=0``): the 32,768 topics in batches of 16,384 (the
    words path; it prints how many overflowed to the bitmap path), 64
@@ -94,7 +99,7 @@ Phases, each of which fails the run (nonzero exit, no result line):
    the same churn; the dense ``RetainedScanner`` over a ``FilterTable`` of
    cfg5's retained draws: the 512-filter mix in batches of 64, each
    filter's topics equal to 4r's (rows mapped to the same topic list);
-   topics/s, scans/s and the dense kernels' launches;
+   topics/s, scans/s and the three dense kernels' launches;
 4s. the multi-device matchers over ``[cuda:0] x 2`` (one card standing in
    for two: the code path, not multi-card scaling): ``ShardedMatcher`` at
    fp = 2 on 4d's table, its assembled bitmap and counts equal to
@@ -245,7 +250,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from rmqtt_tpu_torch.bench.dense_cases import DENSE_CASES, as_tensors, make_dense_case
+from rmqtt_tpu_torch.bench.dense_cases import (DENSE_CASES, WORDS_CASES, as_tensors,
+                                               make_dense_case, make_words_case)
 from rmqtt_tpu_torch.bench import scenarios as SC
 from rmqtt_tpu_torch.bench import tail_kernels as TK
 from rmqtt_tpu_torch.bench.mqtt_load import (LoadClient, connect_and_subscribe,
@@ -258,8 +264,9 @@ from rmqtt_tpu_torch.bench.retained_cases import (RETAINED_CASES, TABLE_FILTERS,
                                                   make_retained_case, table_inputs,
                                                   table_topics)
 from rmqtt_tpu_torch.bench.retained_kernels import RETAINED_BATCH, card_line, real_shapes
-from rmqtt_tpu_torch.bench.roofline_model import (dense_bound_ms, model_table,
-                                                  retained_bound_ms, words_bound_ms)
+from rmqtt_tpu_torch.bench.roofline_model import (dense_bound_ms, dense_words_bound_ms,
+                                                  model_table, retained_bound_ms,
+                                                  words_bound_ms)
 from rmqtt_tpu_torch.bench.timing import HBM_BYTES_PER_S, time_cuda, time_graph
 from rmqtt_tpu_torch.bench.workloads import (gen_mixed, gen_retained_topics,
                                              gen_topics_uniform, retained_sub_filters)
@@ -287,6 +294,7 @@ KERNEL_SOURCE = {
     "retained_scan_full": "rmqtt_tpu_torch/csrc/retained_scan.cu",
     "dense_match_packed": "rmqtt_tpu_torch/csrc/dense_match.cu",
     "dense_match_retained": "rmqtt_tpu_torch/csrc/dense_match.cu",
+    "dense_match_words": "rmqtt_tpu_torch/csrc/dense_match.cu",
     "fused_compact_decode": "rmqtt_tpu_torch/csrc/compact_tail.cu",
     "compact_global": "rmqtt_tpu_torch/csrc/compact_tail.cu",
 }
@@ -297,6 +305,7 @@ REPLACES = {
     "retained_scan_full": "rmqtt_tpu/ops/retained_part.py:234",
     "dense_match_packed": "rmqtt_tpu/ops/match.py:82",
     "dense_match_retained": "rmqtt_tpu/ops/match.py:176",
+    "dense_match_words": "rmqtt_tpu/ops/match.py:151",
     "fused_compact_decode": "rmqtt_tpu/ops/partitioned.py:1356",
     "compact_global": "rmqtt_tpu/ops/partitioned.py:1251",
 }
@@ -1237,13 +1246,35 @@ def build_dense(filters, retained_topics, dev):
     return router, scanner, perm
 
 
+def _compare_words(what: str, packed, max_words: int, s: dict) -> None:
+    """The words kernel against ``match_words_plain`` on one bitmap: word
+    indices, bits and counts ``torch.equal``."""
+    got = DM.match_words(packed, max_words)
+    want = DM.match_words_plain(packed, max_words)
+    torch.cuda.synchronize()
+    err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max()) if g.numel() else 0
+              for g, w in zip(got, want))
+    s["max_abs_err"] = max(s.get("max_abs_err", 0), err)
+    s["cases"] = s.get("cases", 0) + 1
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"dense_match_words {what}: kernel differs from the plain "
+                             f"twin (max abs err {err})")
+    log(f"    dense_match_words {what}: equal, [{packed.shape[0]}, {packed.shape[1]}] K="
+        f"{got[0].shape[1]}, {int((packed != 0).sum())} nonzero words, "
+        f"{int((want[2] > max_words).sum())} topics past K")
+
+
 def phase_dense_kernels(router, scanner, topics, sub_filters, batch: int, dev) -> dict:
-    """3d: both dense kernels against their twins on the whole 1M-row tables
-    (1,024 topics; the 64-filter batch) and on ``DENSE_CASES``; timed at
-    B = ``batch`` (forward) and at the 64-filter batch (inverse) by CUDA
-    events and graph replay, beside the twin's time and the bounds."""
-    log("[3d] the dense full-scan kernels against their plain twins")
-    stats = {name: {} for name in DENSE_PAIRS}
+    """3d: both dense full-scan kernels against their twins on the whole
+    1M-row tables (1,024 topics; the 64-filter batch) and on
+    ``DENSE_CASES``, the words kernel on the forward bitmap of ``batch``
+    topics and of ``WORDS_CASES``; timed by CUDA events and graph replay
+    beside the twins' times and the bounds: the forward at B = ``batch``, 1
+    and 8 (the words and bitmap paths of 4d), the inverse at the 64-filter
+    batch, the words kernel at ``batch`` beside ``torch.topk`` on its
+    twin's keys."""
+    log("[3d] the dense kernels against their plain twins")
+    stats = {name: {} for name in (*DENSE_PAIRS, "dense_match_words")}
     fwd_rows = router.matcher._refresh()
     t = router.table
     real = {
@@ -1262,8 +1293,12 @@ def phase_dense_kernels(router, scanner, topics, sub_filters, batch: int, dev) -
                            ("dense_match_retained", inp.inverse)):
             _compare(f"{name} {case.name}", *DENSE_PAIRS[name], as_tensors(arrs, dev),
                      stats[name])
-    # timings: the forward at the words path's batch, the inverse at the
-    # scanner's; the forward's twin, timed once, is also held to the kernel
+    for wc in WORDS_CASES:
+        packed = DM.match_packed(*as_tensors(make_words_case(wc).forward, dev))
+        _compare_words(wc.name, packed, wc.max_words, stats["dense_match_words"])
+    # timings: the forward at the words path's batch and the bitmap path's
+    # 1 and 8, the inverse at the scanner's; the forward's twin, timed
+    # once, is also held to the kernel
     timed_args = {
         "dense_match_packed": (*fwd_rows, *as_tensors(t.encode_topics(topics[:batch]), dev)),
         "dense_match_retained": real["dense_match_retained"],
@@ -1289,7 +1324,13 @@ def phase_dense_kernels(router, scanner, topics, sub_filters, batch: int, dev) -
             if not torch.equal(got, want):
                 raise AssertionError(f"{name}: kernel differs from the twin at B={b}")
             s["cases"] += 1
-            del got, want
+            del want
+            packed = got
+            s["small_ms"], s["small_graph_ms"] = {}, {}
+            for sb in (1, 8):
+                sargs = (*fwd_rows, *as_tensors(t.encode_topics(topics[:sb]), dev))
+                s["small_ms"][sb] = time_cuda(lambda: kern(*sargs), reps=50)
+                s["small_graph_ms"][sb] = time_graph(lambda: kern(*sargs), reps=10)
         else:
             s["plain_ms"] = time_cuda(lambda: plain(*args), reps=3, warmup=1)
         rows, lvl = args[0].shape
@@ -1299,43 +1340,54 @@ def phase_dense_kernels(router, scanner, topics, sub_filters, batch: int, dev) -
             f"({s['graph_ms']:.4f} ms by graph replay), plain {s['plain_ms']:.3f} ms, "
             f"bound {s['bound_ms']:.4f} ms by {s['bound_by']} with operations at the "
             f"FP32 rate, {s['bound_int_ms']:.4f} ms at the integer rate; "
-            f"{s['cases']} equal cases")
-    stats["programs"] = _time_dense_programs(router, topics, batch, dev)
+            f"{s['cases']} equal cases" + (
+                f"; at B=1 / 8 {s['small_ms'][1]:.4f} / {s['small_ms'][8]:.4f} ms "
+                f"({s['small_graph_ms'][1]:.4f} / {s['small_graph_ms'][8]:.4f} by graph "
+                f"replay; bound {dense_bound_ms(rows, lvl, 1)[0]:.4f} / "
+                f"{dense_bound_ms(rows, lvl, 8)[0]:.4f})" if big else ""))
+    # the words kernel on the forward bitmap of the words path's batch
+    s = stats["dense_match_words"]
+    k = router.matcher.max_matches
+    _compare_words(f"words path batch of the 1M-row table (B={batch})", packed, k, s)
+    bw, w = packed.shape
+    kw = min(k, w)
+    s["ms"] = time_cuda(lambda: DM.match_words(packed, k), reps=20)
+    s["graph_ms"] = time_graph(lambda: DM.match_words(packed, k), reps=5, per_graph=5)
+    s["plain_ms"] = time_cuda(lambda: DM.match_words_plain(packed, k), reps=3, warmup=1)
+    idx = torch.arange(w, dtype=torch.int32, device=dev)
+    keys = torch.where(packed != 0, 2 * w - idx, w - idx)
+    s["library_ms"] = time_cuda(lambda: torch.topk(keys, kw, dim=1), reps=5, warmup=1)
+    del keys
+    s["bound_ms"], s["bound_by"], s["bound_int_ms"] = dense_words_bound_ms(bw, w, kw)
+    s["shape"] = [bw, w, kw]
+    log(f"    dense_match_words: {s['ms']:.4f} ms at [{bw}, {w}] words, K={kw} "
+        f"({s['graph_ms']:.4f} ms by graph replay), plain {s['plain_ms']:.3f} ms, "
+        f"torch.topk on the twin's keys {s['library_ms']:.4f} ms, bound "
+        f"{s['bound_ms']:.4f} ms by {s['bound_by']}; {s['cases']} equal cases")
+    del packed
+    stats["programs"] = _time_dense_programs(router, topics, dev)
+    DM.match_words.launches = 0  # checks and timings, not a path's launches
     torch.cuda.empty_cache()
     log(f"    {card_line()}")
     return stats
 
 
-def _time_dense_programs(router, topics, batch: int, dev) -> dict:
-    """The torch ops over the dense bitmap by CUDA events: ``match_words``
-    at the words path's shape (B = ``batch``), beside ``torch.topk`` alone
-    on the same keys, and ``match_compact`` at 1,024 topics, each beside its
-    bound by bytes (the bitmap read once, the outputs written once)."""
+def _time_dense_programs(router, topics, dev) -> dict:
+    """The torch ops over the dense bitmap that no main path runs, by CUDA
+    events: ``match_compact`` at 1,024 topics, beside its bound by bytes
+    (the bitmap read once, the outputs written once)."""
     m = router.matcher
-    out = {}
     n0 = DM.match_packed.launches
-    for name, b in (("match_words", batch), ("match_compact", DENSE_SAMPLE)):
-        packed = m.match_encoded(*router.table.encode_topics(topics[:b]))
-        bw, w = packed.shape
-        kw = min(m.max_matches, w)
-        if name == "match_words":
-            ms = time_cuda(lambda: DM.match_words(packed, m.max_matches), reps=5, warmup=1)
-            rank = w - torch.arange(w, dtype=torch.int32, device=dev)
-            val = torch.where(packed != 0, rank, 0)
-            lib = time_cuda(lambda: torch.topk(val, kw, dim=1), reps=5, warmup=1)
-            del val
-            wrote = bw * (2 * kw + 1) * 4
-        else:
-            ms = time_cuda(lambda: DM.match_compact(packed, m.chunk, m.max_matches),
-                           reps=3, warmup=1)
-            lib = None
-            wrote = bw * (m.max_matches + 1) * 4
-        out[name] = {"ms": ms, "library_ms": lib, "shape": [bw, w],
-                     "bound_ms": (packed.numel() * 4 + wrote) / HBM_BYTES_PER_S * 1e3}
-        del packed
-        log(f"    {name}: {ms:.4f} ms at [{bw}, {w}] words by CUDA events, bound "
-            f"{out[name]['bound_ms']:.4f} ms by bytes; library "
-            f"{'torch.topk %.4f ms' % lib if lib is not None else 'none'}")
+    packed = m.match_encoded(*router.table.encode_topics(topics[:DENSE_SAMPLE]))
+    bw, w = packed.shape
+    ms = time_cuda(lambda: DM.match_compact(packed, m.chunk, m.max_matches), reps=3, warmup=1)
+    out = {"match_compact": {
+        "ms": ms, "library_ms": None, "shape": [bw, w],
+        "bound_ms": (packed.numel() * 4 + bw * (m.max_matches + 1) * 4)
+        / HBM_BYTES_PER_S * 1e3}}
+    del packed
+    log(f"    match_compact: {ms:.4f} ms at [{bw}, {w}] words by CUDA events, bound "
+        f"{out['match_compact']['bound_ms']:.4f} ms by bytes; library none")
     DM.match_packed.launches = n0  # timing inputs, not a path's launches
     return out
 
@@ -1362,7 +1414,7 @@ def phase_dense(router, scanner, perm, filters, topics, batch: int, want_filters
         "RetainedScanner")
     m = router.matcher
     n = len(topics)
-    DM.match_packed.launches = DM.match_retained.launches = 0
+    DM.match_packed.launches = DM.match_retained.launches = DM.match_words.launches = 0
     got, secs = _dense_pass(router, topics, batch)
     over = sum(len(g) > m.max_matches for g in got)
     for i, (g, w) in enumerate(zip(got, want_filters)):
@@ -1370,10 +1422,12 @@ def phase_dense(router, scanner, perm, filters, topics, batch: int, want_filters
             raise AssertionError(f"4d: dense router differs from phase 4 at {topics[i]!r}: "
                                  f"{len(g)} vs {len(w)} filters")
     words_launches = DM.match_packed.launches
+    words_kernel_launches = DM.match_words.launches
     words_tps = n / secs
     log(f"    {n} topics in batches of {batch} (words path): {secs * 1e3:.3f} ms = "
         f"{n / secs:.1f} topics/s; {over} topics overflowed the {m.max_matches} "
-        f"words to the bitmap path; {words_launches} launches; all equal to phase 4's "
+        f"words to the bitmap path; {words_launches} forward and {words_kernel_launches} "
+        f"words launches; all equal to phase 4's "
         f"({sum(len(g) for g in got)} routes)")
     del got
     small_t = {}
@@ -1419,11 +1473,13 @@ def phase_dense(router, scanner, perm, filters, topics, batch: int, want_filters
            "churn_topics_per_s": len(stopics) / secs, "overflowed": over,
            "scans_per_s": len(sub_filters) / ssecs,
            "launches_packed": DM.match_packed.launches,
-           "launches_retained": DM.match_retained.launches}
+           "launches_retained": DM.match_retained.launches,
+           "launches_words": DM.match_words.launches}
     log(f"    dense RetainedScanner: {len(sub_filters)} filters in batches of "
         f"{RETAINED_BATCH}, {out['scans_per_s']:.1f} scans/s, every filter's topics "
         f"equal to 4r's ({sum(len(r) for r in res)} topics)")
     log(f"    launches: dense_match_packed {out['launches_packed']}, "
+        f"dense_match_words {out['launches_words']}, "
         f"dense_match_retained {out['launches_retained']}; {card_line()}")
     return out
 
@@ -3279,6 +3335,7 @@ def main(argv=None) -> int:
                                      sharded["launches_packed"]}
     by_path["dense_match_retained"] = {"dense retained scanner, phase 4d":
                                        dense["launches_retained"]}
+    by_path["dense_match_words"] = {"dense router, phase 4d": dense["launches_words"]}
     if "all_cards" in sharded:
         by_path["match_words_legacy"]["mesh over every card, phase 4s"] = \
             sharded["all_cards"]["launches_legacy"]
@@ -3326,7 +3383,7 @@ def main(argv=None) -> int:
             "launches_by_path": by_path[name],
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-            "bound_by": s["bound_by"], "library_ms": None,
+            "bound_by": s["bound_by"], "library_ms": s.get("library_ms"),
             "equal_to_plain": True, "cases": s["cases"],
             "bound_int_ms": s["bound_int_ms"], "graph_ms": s["graph_ms"],
         }
@@ -3339,7 +3396,8 @@ def main(argv=None) -> int:
                        bucket_graph_ms_per_batch=s["bucket_graph_ms_per_batch"],
                        graph_ms_by_shape={k: r["graph_ms"] for k, r in s["shapes"].items()})
         else:
-            row.update({k: s[k] for k in ("shape", "one_filter") if k in s})
+            row.update({k: s[k] for k in ("shape", "one_filter", "small_ms", "small_graph_ms")
+                        if k in s})
         kernels.append(row)
     log(f"[8] kernels (total run {time.perf_counter() - t_start:.1f}s; seconds by "
         f"phase {({k: round(v, 1) for k, v in PHASE_S.items()})}); retained "
@@ -3352,8 +3410,9 @@ def main(argv=None) -> int:
         f"4d dense router {dense['topics_per_s']:.1f} topics/s at {args.batch} a batch "
         f"({dense['overflowed']} overflowed), "
         f"{ {k: round(v, 1) for k, v in dense['small_topics_per_s'].items()} } at 1 and 8, "
-        f"dense retained {dense['scans_per_s']:.1f} scans/s; 3d match_words / "
-        f"match_compact ms {dense_programs['match_words']['ms']:.4f} / "
+        f"dense retained {dense['scans_per_s']:.1f} scans/s; 3d forward / words / "
+        f"match_compact ms {stats['dense_match_packed']['graph_ms']:.4f} / "
+        f"{stats['dense_match_words']['graph_ms']:.4f} / "
         f"{dense_programs['match_compact']['ms']:.4f}; 3t fused tail / compact_global "
         f"ms {stats['fused_compact_decode']['ms']:.4f} / {stats['compact_global']['ms']:.4f} "
         f"(graph {stats['fused_compact_decode']['graph_ms']:.4f} / "

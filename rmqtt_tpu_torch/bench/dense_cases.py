@@ -8,8 +8,13 @@ register tile (L = 9, past 16, past the 32 staged levels); and the
 semantics the row test must keep: ``$SYS`` rows and topics against
 ``+``/``#``-first filters, a bare ``#``, ``+/#``, blank levels, padded
 topics (``tlen = -2``) and filters (``flen = -2``), topics deeper than the
-table. ``chip_smoke.py`` phase 3d and ``tests/test_torch_cuda.py`` run the
-same :data:`DENSE_CASES`. Everything is made from a seed.
+table, a batch that is no multiple of the forward kernel's topic tile.
+``chip_smoke.py`` phase 3d and ``tests/test_torch_cuda.py`` run the
+same :data:`DENSE_CASES`. :data:`WORDS_CASES` hold the words kernel
+(``match_words``) against its twin on the forward bitmaps of some of them:
+a batch of 1, padded topics, a topic that matches nothing, topics with
+more nonzero words than ``K``, and ``W`` below ``max_words`` (``K = W``).
+Everything is made from a seed.
 """
 
 from __future__ import annotations
@@ -39,6 +44,8 @@ DENSE_CASES = (
               130, 256, 0),
     DenseCase("L=20, past the 16-level tile", 500, 40, 64, 20),
     DenseCase("L=40, past the 32 staged levels", 500, 40, 64, 40),
+    DenseCase("B=200 unpadded, the forward tile's ragged edge (200 = 128 + 72)", 3000,
+              200, 200, 0),
 )
 
 #: filters every case holds (and scans in the inverse direction)
@@ -82,8 +89,9 @@ class DenseInputs(NamedTuple):
     scanned: List[str]
 
 
-def make_dense_case(case: DenseCase, seed: int = 0) -> DenseInputs:
-    """→ the case's inputs (:class:`DenseInputs`)."""
+def make_dense_case(case: DenseCase, seed: int = 0, extra_topics=()) -> DenseInputs:
+    """→ the case's inputs (:class:`DenseInputs`); ``extra_topics`` are
+    appended to the batch's real topics (the padding shrinks by as many)."""
     rng = random.Random(seed * 1000 + sum(map(ord, case.name)))
     filters = list(FIXED_FILTERS) + [_random_filter(rng, rng.randint(1, 6))
                                      for _ in range(case.filters)]
@@ -95,7 +103,7 @@ def make_dense_case(case: DenseCase, seed: int = 0) -> DenseInputs:
         topics.append("/".join(["a"] * (case.deep + 5)))  # deeper than the table
     while len(topics) < case.batch:
         topics.append(_random_topic(rng, rng.randint(1, 7)))
-    topics = topics[:case.batch]
+    topics = topics[:case.batch] + list(extra_topics)
     fwd = FilterTable()
     live = {fwd.add(f): f for f in filters}
     for fid in range(0, len(filters), 7):  # free rows between live ones
@@ -111,7 +119,7 @@ def make_dense_case(case: DenseCase, seed: int = 0) -> DenseInputs:
     scanned = (filters * (1 + case.batch // len(filters)))[:case.batch]
     rng.shuffle(scanned)
     forward = (fwd.tok, fwd.flen, fwd.prefix_len, fwd.has_hash, fwd.first_wild,
-               *fwd.encode_topics(topics, pad_batch_to=case.pad_to))
+               *fwd.encode_topics(topics, pad_batch_to=max(case.pad_to, len(topics))))
     inverse = (inv.tok, inv.flen, inv.row_dollar,
                *inv.encode_filters(scanned, pad_batch_to=case.pad_to))
     return DenseInputs(forward, inverse, live, topics, stored, scanned)
@@ -124,3 +132,31 @@ def as_tensors(arrays, device) -> tuple:
 
     return tuple(torch.from_numpy(np.ascontiguousarray(
         a, dtype=bool if a.dtype == np.bool_ else np.int32)).to(device) for a in arrays)
+
+
+class WordsCase(NamedTuple):
+    name: str
+    case: DenseCase  # the forward bitmap's table and topics
+    max_words: int
+    extra_topics: tuple  # topics appended to the case's batch
+    over_k: bool  # some topic has more than K nonzero words
+
+
+#: a topic whose first level starts with '$' and is in no filter: no row
+#: matches it (wildcard-first rows by the $ rule, the others by level 0)
+NO_MATCH = "$none/x"
+
+WORDS_CASES = (
+    WordsCase("B=1, W=32 below max_words: K = W", DENSE_CASES[0], 128, (), False),
+    WordsCase("3 topics padded to 4, K = W = 32", DENSE_CASES[1], 128, (), False),
+    WordsCase("37 topics and one that matches nothing, padded to 64, K=8, L=9",
+              DENSE_CASES[2], 8, (NO_MATCH,), True),
+    WordsCase("topics with more than K nonzero words, K=4, W=128", DENSE_CASES[3], 4,
+              (NO_MATCH,), True),
+)
+
+
+def make_words_case(wc: WordsCase, seed: int = 0) -> DenseInputs:
+    """→ the inputs of ``wc``'s forward scan: its bitmap is the words
+    case's input."""
+    return make_dense_case(wc.case, seed, wc.extra_topics)

@@ -1,8 +1,8 @@
 """The port's roofline numbers in one place: the analytic device-memory
 model of the partitioned match (``model_table``), and the least time the
 card could take for one call of each hand-written kernel
-(``words_bound_ms``, ``dense_bound_ms``, ``retained_bound_ms``,
-``fused_tail_bound_ms``, ``compact_global_bound_ms``).
+(``words_bound_ms``, ``dense_bound_ms``, ``dense_words_bound_ms``,
+``retained_bound_ms``, ``fused_tail_bound_ms``, ``compact_global_bound_ms``).
 
 ``chip_smoke.py`` phase 4 calls ``model_table`` against the live 1M-filter
 packed table with the candidate counts of the first 2,048 topics and the
@@ -142,6 +142,14 @@ def dense_bound_ms(rows: int, lvl: int, b: int):
     nbytes = rows * (lvl * 4 + 10) + b * (lvl * 4 + 10) + b * rows // 8
     ops = b * rows * (2 * lvl + 6)
     return _bound(nbytes, ops)
+
+
+def dense_words_bound_ms(b: int, w: int, k: int):
+    """Least time for one dense words call (``match_words``) on a ``[b, w]``
+    bitmap with ``k`` slots a topic: the bitmap read once and ``word_idx``,
+    ``word_bits`` (``[b, k]`` each) and ``counts`` written once; ~2
+    operations a word (a popcount and a test). → as :func:`dense_bound_ms`."""
+    return _bound(b * w * 4 + b * (2 * k + 1) * 4, 2 * b * w)
 
 
 def retained_work(tiles, fields, chunk_ids=None):

@@ -58,6 +58,8 @@ _SIGNATURES = {
     # out, stream
     "launch_dense_match_retained": (_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I,
                                     _P, _P),
+    # packed, w, b, k, word_idx, word_bits, counts, stream
+    "launch_dense_match_words": (_P, _I, _I, _I, _P, _P, _P, _P),
     # b → bytes of the tails' scratch
     "compact_tail_scratch_bytes": (_I,),
     # words, w, fid_rows, fid_chunks, chunk_ids, nc, b, budget, out, scratch,

@@ -28,8 +28,12 @@ package's uint32 words, bit for bit).
   retained topic names (the SUBSCRIBE-side scan). Kernel:
   ``launch_dense_match_retained``, replacing ``match_retained_impl``.
   Plain twin: :func:`match_retained_plain`.
-- :func:`match_compact` and :func:`match_words` — torch ops over the
-  kernel's bitmap (``match_compact_impl``, ``match_words_impl``).
+- :func:`match_words` — the words path's compaction of the bitmap: each
+  topic's first nonzero words, their bits and its match count. Kernel:
+  ``launch_dense_match_words``, replacing ``match_words_impl``'s popcount
+  and ``lax.top_k``. Plain twin: :func:`match_words_plain`.
+- :func:`match_compact` — torch ops over the kernel's bitmap
+  (``match_compact_impl``), on no main path.
 
 A wrapper given CPU tensors runs its plain twin; given CUDA tensors it
 launches its kernel or raises — it never falls back. Each wrapper counts
@@ -282,23 +286,69 @@ def match_compact(packed: torch.Tensor, chunk: int, max_matches: int):
     return out[:, :max_matches], counts
 
 
-def match_words(packed: torch.Tensor, max_words: int):
-    """Sparse output from a bitmap (twin of the JAX ``match_words_impl``):
-    ``(word_idx [B, K], word_bits [B, K], counts [B])`` int32 with
-    ``K = min(max_words, W)``: each topic's first nonzero words in word
-    order by ``torch.topk`` over position-encoded values, their bits, and
-    the exact match counts (``_popcount32``). A topic has more than
-    ``max_words`` nonzero words only if it has more than ``max_words``
-    matches, so ``counts > max_words`` is the exact overflow signal for the
-    bitmap fallback. Among zero words ``torch.topk`` may order indices
-    otherwise than ``lax.top_k``; their bits are zero, so the decoded rows
-    are the same."""
+def match_words_plain(packed: torch.Tensor, max_words: int):
+    """Sparse output from a bitmap in torch ops (twin of the JAX
+    ``match_words_impl``'s popcount and ``lax.top_k``, and of the words
+    kernel): ``(word_idx [B, K], word_bits [B, K], counts [B])`` int32 with
+    ``K = min(max_words, W)``: each topic's first ``min(K, nnz)`` nonzero
+    word indices ascending, then its lowest-index zero words ascending
+    (``lax.top_k`` puts the lower index first among equal keys), their bits
+    and the exact match counts (``_popcount32``). The keys are unique — a
+    nonzero word ``2W - idx``, a zero word ``W - idx`` — so ``torch.topk``
+    has no ties to order and gives JAX's indices exactly (int32 keys: W <
+    2^30, a row of 2^35 filters). A topic has more than ``max_words``
+    nonzero words only if it has more than ``max_words`` matches, so
+    ``counts > max_words`` is the exact overflow signal for the bitmap
+    fallback."""
     b, w = packed.shape
+    k = min(max_words, w)
     counts = _popcount32(packed).sum(dim=1).to(torch.int32)
-    rank = w - torch.arange(w, dtype=torch.int32, device=packed.device)
-    val = torch.where(packed != 0, rank, 0)
-    word_idx = torch.topk(val, min(max_words, w), dim=1).indices
+    idx = torch.arange(w, dtype=torch.int32, device=packed.device)
+    key = torch.where(packed != 0, 2 * w - idx, w - idx)
+    word_idx = torch.topk(key, k, dim=1).indices
     return word_idx.to(torch.int32), torch.gather(packed, 1, word_idx), counts
+
+
+def match_words(packed: torch.Tensor, max_words: int):
+    """:func:`match_words_plain`'s output from a ``[B, W]`` int32 bitmap.
+    A contiguous CUDA tensor launches the words kernel
+    (``launch_dense_match_words``: one pass over each topic's row, in
+    16-byte loads, so W must be a multiple of 4 and the tensor 16-byte
+    aligned, as :class:`DenseMatcher`'s bitmap is); a CPU tensor runs the
+    plain twin."""
+    dev = packed.device
+    if dev.type == "cpu":
+        return match_words_plain(packed, max_words)
+    if dev.type != "cuda":
+        raise ValueError(f"match_words: unsupported device {dev}")
+    if packed.dim() != 2:
+        raise ValueError(f"match_words: packed {tuple(packed.shape)} is not [B, W]")
+    if packed.dtype != torch.int32:
+        raise TypeError(f"match_words: packed dtype {packed.dtype}, expected torch.int32")
+    if not packed.is_contiguous():
+        raise ValueError("match_words: packed must be contiguous")
+    b, w = packed.shape
+    if w % 4 or packed.data_ptr() % 16:
+        raise ValueError(f"match_words: packed needs W % 4 == 0 (W = {w}) and a "
+                         "16-byte aligned start")
+    k = min(max_words, w)
+    if k < 0:
+        raise ValueError(f"match_words: max_words {max_words} is negative")
+    word_idx = torch.empty((b, k), dtype=torch.int32, device=dev)
+    word_bits = torch.empty((b, k), dtype=torch.int32, device=dev)
+    counts = torch.empty((b,), dtype=torch.int32, device=dev)
+    if b == 0:
+        return word_idx, word_bits, counts
+    from rmqtt_tpu_torch.ops._build import kernel_library
+
+    _launch("match_words", kernel_library().lib.launch_dense_match_words, dev,
+            packed.data_ptr(), w, b, k, word_idx.data_ptr(), word_bits.data_ptr(),
+            counts.data_ptr())
+    match_words.launches += 1
+    return word_idx, word_bits, counts
+
+
+match_words.launches = 0
 
 
 # ----------------------------------------------------------- host decode

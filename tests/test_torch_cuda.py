@@ -36,7 +36,8 @@ from rmqtt_tpu_torch.bench.mqtt_load import (LoadClient, connect_and_subscribe,
 from rmqtt_tpu_torch.bench.retained_cases import (RETAINED_CASES, TABLE_FILTERS,
                                                   make_retained_case, table_inputs,
                                                   table_topics)
-from rmqtt_tpu_torch.bench.dense_cases import DENSE_CASES, as_tensors, make_dense_case
+from rmqtt_tpu_torch.bench.dense_cases import (DENSE_CASES, WORDS_CASES, DenseCase, as_tensors,
+                                               make_dense_case, make_words_case)
 from rmqtt_tpu_torch.bench.tail_cases import CARD_CASES, make_tail_case
 from rmqtt_tpu_torch.bench.words_cases import EDGE_CASES, make_case
 from rmqtt_tpu_torch.broker.context import BrokerConfig, ServerContext
@@ -324,6 +325,86 @@ def test_dense_kernels_equal_plain_on_cuda(cuda, case):
     want_f, want_i = DM.match_packed_plain(*fwd), DM.match_retained_plain(*inv)
     assert torch.equal(got_f, want_f) and bool((want_f != 0).any())
     assert torch.equal(got_i, want_i) and bool((want_i != 0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,deep", [(31, 0), (33, 0), (100, 0), (200, 0), (333, 0), (40, 12),
+                                    (150, 12), (100, 20), (70, 40)])
+def test_dense_forward_ragged_topic_tile_on_cuda(cuda, b, deep):
+    """The forward kernel against its twin on batches that are no multiple
+    of its topic tile (32 T topics a warp: T = 8 at up to 8 levels, 4 at up
+    to 16, 2 past them, and the least power of two >= ceil(B / 32) below
+    that), unpadded, on a 3,000-filter table."""
+    case = DenseCase(f"B={b}, L={deep or 'table'}", 3000, b, b, deep)
+    fwd = as_tensors(make_dense_case(case).forward, cuda)
+    got = DM.match_packed(*fwd)
+    torch.cuda.synchronize()
+    want = DM.match_packed_plain(*fwd)
+    assert torch.equal(got, want) and bool((want != 0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wc", WORDS_CASES, ids=[w.name for w in WORDS_CASES])
+def test_dense_words_kernel_equals_plain_on_cuda(cuda, wc):
+    """The words kernel against ``match_words_plain`` on the forward
+    kernel's bitmaps of ``bench/dense_cases.py``'s words cases: word
+    indices, bits and counts ``torch.equal``, one launch."""
+    inp = make_words_case(wc)
+    packed = DM.match_packed(*as_tensors(inp.forward, cuda))
+    n0 = DM.match_words.launches
+    got = DM.match_words(packed, wc.max_words)
+    torch.cuda.synchronize()
+    assert DM.match_words.launches == n0 + 1
+    for g, w in zip(got, DM.match_words_plain(packed, wc.max_words)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,w,density,max_words", [
+    (5, 100, 0.1, 128), (9, 2048, 0.01, 128), (33, 512, 0.9, 128), (16, 1024, 0.002, 16),
+    (2, 300, 0.3, 300)])
+def test_dense_words_kernel_on_random_bitmaps_on_cuda(cuda, b, w, density, max_words):
+    """Random words of every bit pattern, an all-zero first topic, K below
+    and at W."""
+    rng = np.random.default_rng(b * 1000 + w)
+    vals = rng.integers(-2**31, 2**31, size=(b, w), dtype=np.int64)
+    vals[vals == 0] = 1
+    bits = np.where(rng.random((b, w)) < density, vals, 0).astype(np.int32)
+    bits[0] = 0
+    packed = torch.from_numpy(bits).to(cuda)
+    for k in (max_words, 1, w):
+        got = DM.match_words(packed, k)
+        torch.cuda.synchronize()
+        for g, want in zip(got, DM.match_words_plain(packed, k)):
+            assert torch.equal(g, want)
+
+
+@pytest.mark.cuda
+def test_match_words_raises_when_the_library_fails(cuda, monkeypatch):
+    """Given a CUDA bitmap ``match_words`` launches its kernel or raises: a
+    library that does not load raises ``KernelError`` and nothing runs the
+    twin instead; a bitmap the kernel does not take (not int32, not
+    contiguous, W not a multiple of 4, a start off 16-byte alignment) is
+    refused first."""
+    import rmqtt_tpu_torch.ops._build as B
+
+    def broken():
+        raise B.KernelError("cannot load the kernel library")
+
+    packed = torch.zeros((4, 64), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="int32"):
+        DM.match_words(packed.to(torch.int64), 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        DM.match_words(packed.t(), 8)
+    with pytest.raises(ValueError, match="W % 4"):
+        DM.match_words(packed[:, :63].contiguous(), 8)
+    with pytest.raises(ValueError, match="aligned"):
+        DM.match_words(packed.reshape(-1)[1:241].view(4, 60), 8)
+    monkeypatch.setattr(B, "kernel_library", broken)
+    n0 = DM.match_words.launches
+    with pytest.raises(B.KernelError, match="cannot load"):
+        DM.match_words(packed, 8)
+    assert DM.match_words.launches == n0
 
 
 def _routed(rows):

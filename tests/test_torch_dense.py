@@ -20,7 +20,8 @@ import rmqtt_tpu_torch.ops.encode as TE
 import rmqtt_tpu_torch.ops.match as TM
 import rmqtt_tpu_torch.ops.retained as TR
 from rmqtt_tpu.core.topic import filter_valid, match_filter
-from rmqtt_tpu_torch.bench.dense_cases import DENSE_CASES, as_tensors, make_dense_case
+from rmqtt_tpu_torch.bench.dense_cases import (DENSE_CASES, NO_MATCH, WORDS_CASES, as_tensors,
+                                               make_dense_case, make_words_case)
 from rmqtt_tpu_torch.router import Id, SubscriptionOptions, TorchRouter
 
 WORDS = ["a", "b", "c", "", "+", "$SYS"]
@@ -151,21 +152,52 @@ def test_match_rows_equal_tpu_matcher(tables, path, monkeypatch):
 
 
 def test_match_words_nonzero_entries_equal_jax(tables):
-    """``match_words`` against ``match_words_impl``: counts equal, the
-    nonzero (index, bits) pairs equal in order; zero words may be ordered
-    otherwise by ``torch.topk``."""
+    """``match_words`` against ``match_words_impl``: ``word_idx``,
+    ``word_bits`` and ``counts`` equal as whole arrays, the zero words that
+    fill a topic's slots after its nonzero ones included (``lax.top_k``'s
+    order: the lower index first)."""
     jt, tt, _live = tables
     jm, tm = JM.TpuMatcher(jt), TM.DenseMatcher(tt, device="cpu")
     ttok, tlen, td = tt.encode_topics(_topics(random.Random(15), 32))
     packed = tm.match_encoded(ttok, tlen, td)
-    wi, wb, cn = (a.numpy() for a in TM.match_words(packed, 8))
+    nnz = (packed != 0).sum(dim=1)
+    w = packed.shape[1]
+    for max_words in (8, w):  # topics past K; K = W, every zero word ranked
+        wi, wb, cn = (a.numpy() for a in TM.match_words(packed, max_words))
+        jwi, jwb, jcn = (np.asarray(a) for a in JM._match_words(
+            *jm._refresh(), ttok, tlen, td, nchunks=jm._nchunks(), max_words=max_words))
+        assert wi.dtype == wb.dtype == cn.dtype == np.int32
+        assert np.array_equal(cn, jcn)
+        assert np.array_equal(wi, jwi)
+        assert np.array_equal(_u32(wb), jwb)
+    assert bool((nnz > 8).any()) and bool((nnz < w).all())  # overflow, zero-filled slots
+
+
+@pytest.mark.parametrize("wc", WORDS_CASES, ids=[w.name for w in WORDS_CASES])
+def test_match_words_cases_equal_jax(wc):
+    """``bench/dense_cases.py``'s words cases (the card's and ``chip_smoke.py``
+    3d's) through ``match_words`` on CPU tensors and through the JAX
+    ``_match_words`` on the same table and topics: whole arrays equal. The
+    wrapper runs the twin on the CPU and launches nothing."""
+    inp = make_words_case(wc)
+    packed = TM.match_packed(*as_tensors(inp.forward, "cpu"))
+    n0 = TM.match_words.launches
+    wi, wb, cn = (a.numpy() for a in TM.match_words(packed, wc.max_words))
+    assert TM.match_words.launches == n0
     jwi, jwb, jcn = (np.asarray(a) for a in JM._match_words(
-        *jm._refresh(), ttok, tlen, td, nchunks=jm._nchunks(), max_words=8))
+        *inp.forward, nchunks=1, max_words=wc.max_words))
+    assert np.array_equal(wi, jwi) and np.array_equal(_u32(wb), jwb)
     assert np.array_equal(cn, jcn)
-    for j in range(len(cn)):
-        nz, jnz = wb[j] != 0, jwb[j] != 0
-        assert np.array_equal(wi[j][nz], jwi[j][jnz])
-        assert np.array_equal(_u32(wb[j][nz]), jwb[j][jnz])
+    b, w = packed.shape
+    k = min(wc.max_words, w)
+    assert wi.shape == (b, k) and (k == w) == (wc.max_words >= w)
+    nnz = (packed != 0).sum(dim=1).numpy()
+    assert bool((nnz > k).any()) == wc.over_k
+    real = wc.case.batch + len(wc.extra_topics)
+    assert not nnz[real:].any()  # padded topics match nothing
+    for j, topic in enumerate(inp.topics):
+        if topic == NO_MATCH:
+            assert nnz[j] == 0 and cn[j] == 0 and np.array_equal(wi[j], np.arange(k))
 
 
 def test_overflow_falls_back(monkeypatch):
@@ -300,7 +332,10 @@ def test_wrappers_refuse_other_devices():
         TM.match_packed(*meta, *topics)
     with pytest.raises(ValueError, match="unsupported device"):
         TM.match_retained(*meta[:3], *topics[:1], *meta[1:])
+    with pytest.raises(ValueError, match="unsupported device"):
+        TM.match_words(torch.empty((3, 64), dtype=torch.int32, device="meta"), 8)
     assert TM.match_packed.launches == 0 and TM.match_retained.launches == 0
+    assert TM.match_words.launches == 0
 
 
 @pytest.mark.parametrize("case", DENSE_CASES, ids=[c.name for c in DENSE_CASES])
