@@ -32,7 +32,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
    matcher's budget and with half of it (topics cut), the NC split's
    buckets of that batch and the broker's batches of 1, 2 and 4 topics
    (budget 256); each kernel and twin timed by CUDA events and graph
-   replay beside the bounds;
+   replay beside the bounds; the device operations of one wrapper call at
+   each shape counted with ``torch.profiler``: one kernel at the broker's
+   shapes (the one-launch path) and one memset and one kernel for a larger
+   call (the single pass), or the run fails;
 3r. retained kernels — the gather and the full-stream retained-scan kernels
    against their twins (``torch.equal``) at the scanner's real shapes on
    the 1M-topic retained table (a 64-filter batch of ``run_retained``'s
@@ -538,7 +541,9 @@ def phase_tail_kernels(router: TorchRouter, topics, batch: int) -> dict:
             f"{s['plain_graph_ms']} by graph replay; bound {s['bound_ms']:.5f} ms by "
             f"{s['bound_by']}); the NC split's buckets "
             f"{s['bucket_graph_ms_per_batch']:.4f} ms a batch by graph replay; "
-            f"{s['cases']} equal cases; {card}")
+            f"{s['cases']} equal cases; device operations a call by shape "
+            f"{ {k: r['ops']['kernels'] + r['ops']['memsets'] for k, r in s['shapes'].items()} }; "
+            f"{card}")
     return stats
 
 
@@ -3183,7 +3188,7 @@ def phase_profile(router: TorchRouter, topics, batch: int) -> None:
         f"{100 - share * 100:.2f}%)" if prof_rows
         else "    no device time recorded (not measured)")
     for i, (name, ms, cnt) in enumerate(prof_rows):
-        if i < 10 or "match_words" in name:
+        if i < 10 or "match_words" in name or "tail_" in name:
             log(f"      {ms:9.3f} ms  x{cnt:<5d} {name[:90]}")
 
 
@@ -3394,7 +3399,9 @@ def main(argv=None) -> int:
             row.update(shape=s["shape"], budget=s["budget"],
                        plain_graph_ms=s["plain_graph_ms"],
                        bucket_graph_ms_per_batch=s["bucket_graph_ms_per_batch"],
-                       graph_ms_by_shape={k: r["graph_ms"] for k, r in s["shapes"].items()})
+                       graph_ms_by_shape={k: r["graph_ms"] for k, r in s["shapes"].items()},
+                       ops_by_shape={k: r["ops"]["kernels"] + r["ops"]["memsets"]
+                                     for k, r in s["shapes"].items()})
         else:
             row.update({k: s[k] for k in ("shape", "one_filter", "small_ms", "small_graph_ms")
                         if k in s})

@@ -60,13 +60,13 @@ _SIGNATURES = {
                                     _P, _P),
     # packed, w, b, k, word_idx, word_bits, counts, stream
     "launch_dense_match_words": (_P, _I, _I, _I, _P, _P, _P, _P),
-    # b → bytes of the tails' scratch
-    "compact_tail_scratch_bytes": (_I,),
-    # words, w, fid_rows, fid_chunks, chunk_ids, nc, b, budget, out, scratch,
-    # stream
-    "launch_fused_compact_decode": (_P, _I, _P, _I, _P, _I, _I, _I, _P, _P, _P),
-    # words, w, b, budget, out, wide, scratch, stream
-    "launch_compact_global": (_P, _I, _I, _I, _P, _I, _P, _P),
+    # b, budget → bytes the tails need past their wire (0: one launch)
+    "compact_tail_scratch_bytes": (_I, _I),
+    # words, w, fid_rows, fid_chunks, chunk_ids, nc, b, budget, out (the wire,
+    # then the scratch), stream
+    "launch_fused_compact_decode": (_P, _I, _P, _I, _P, _I, _I, _I, _P, _P),
+    # words, w, b, budget, out (the wire, then the scratch), wide, stream
+    "launch_compact_global": (_P, _I, _I, _I, _P, _I, _P),
 }
 
 

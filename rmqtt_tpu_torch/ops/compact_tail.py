@@ -153,9 +153,49 @@ def _check_cuda(name: str, words: torch.Tensor, budget: int, **others) -> None:
                          f"the int32 indices")
 
 
-def _scratch(lib, b: int, dev) -> torch.Tensor:
-    return torch.empty(lib.compact_tail_scratch_bytes(b), dtype=torch.uint8,
-                       device=dev)
+def _wire(lib, b: int, budget: int, dtype, dev) -> torch.Tensor:
+    """The ``[budget + B]`` wire, in an allocation that also holds what the
+    launch needs past it (``compact_tail_scratch_bytes``, from the wire's
+    end rounded up to 16 bytes; none on the one-launch path)."""
+    extra = lib.compact_tail_scratch_bytes(b, budget)
+    if extra < 0:
+        raise ValueError(f"compaction tail: no scratch size for B={b}, budget {budget}")
+    wire = (budget + b) * (4 if dtype == torch.int32 else 2)
+    nbytes = -(-wire // 16) * 16 + extra if extra else wire
+    return torch.empty(nbytes, dtype=torch.uint8, device=dev)[:wire].view(dtype)
+
+
+def launch_fused(lib, words: torch.Tensor, fid_rows: torch.Tensor,
+                 chunk_ids: torch.Tensor, budget: int) -> torch.Tensor:
+    """One call of ``lib``'s ``launch_fused_compact_decode`` on checked
+    tensors, on the current stream of their device; counts nothing. The
+    wrapper passes the kernel library; a benchmark may pass another build
+    of the source."""
+    b, w = words.shape
+    dev = words.device
+    out = _wire(lib, b, budget, torch.int32, dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.launch_fused_compact_decode(
+            words.data_ptr(), w, fid_rows.data_ptr(), fid_rows.numel() // CHUNK,
+            chunk_ids.data_ptr(), chunk_ids.shape[1], b, budget, out.data_ptr(), stream)
+    _raise_on(err, "fused_compact_decode")
+    return out
+
+
+def launch_global(lib, words: torch.Tensor, budget: int) -> torch.Tensor:
+    """One call of ``lib``'s ``launch_compact_global``, as
+    :func:`launch_fused`."""
+    b, w = words.shape
+    wide = w * 32 >= 0x10000
+    dev = words.device
+    out = _wire(lib, b, budget, torch.int32 if wide else torch.int16, dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.launch_compact_global(words.data_ptr(), w, b, budget, out.data_ptr(),
+                                        int(wide), stream)
+    _raise_on(err, "compact_global")
+    return out
 
 
 def fused_compact_decode(words: torch.Tensor, fid_rows: torch.Tensor,
@@ -180,17 +220,7 @@ def fused_compact_decode(words: torch.Tensor, fid_rows: torch.Tensor,
                          f"[chunks, {CHUNK}]")
     from rmqtt_tpu_torch.ops._build import kernel_library
 
-    lib = kernel_library().lib
-    dev = words.device
-    out = torch.empty(budget + b, dtype=torch.int32, device=dev)
-    scratch = _scratch(lib, b, dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.launch_fused_compact_decode(
-            words.data_ptr(), w, fid_rows.data_ptr(), fid_rows.numel() // CHUNK,
-            chunk_ids.data_ptr(), chunk_ids.shape[1], b, budget, out.data_ptr(),
-            scratch.data_ptr(), stream)
-    _raise_on(err, name)
+    out = launch_fused(kernel_library().lib, words, fid_rows, chunk_ids, budget)
     fused_compact_decode.launches += 1
     return out
 
@@ -208,21 +238,9 @@ def compact_global(words: torch.Tensor, budget: int) -> torch.Tensor:
     if words.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {words.device}")
     _check_cuda(name, words, budget)
-    b, w = words.shape
-    wide = w * 32 >= 0x10000
     from rmqtt_tpu_torch.ops._build import kernel_library
 
-    lib = kernel_library().lib
-    dev = words.device
-    out = torch.empty(budget + b, dtype=torch.int32 if wide else torch.int16,
-                      device=dev)
-    scratch = _scratch(lib, b, dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.launch_compact_global(words.data_ptr(), w, b, budget,
-                                        out.data_ptr(), int(wide),
-                                        scratch.data_ptr(), stream)
-    _raise_on(err, name)
+    out = launch_global(kernel_library().lib, words, budget)
     compact_global.launches += 1
     return out
 

@@ -246,16 +246,48 @@ def test_tail_kernels_equal_plain_on_cuda(cuda, case):
 @pytest.mark.cuda
 def test_tail_kernels_on_unaligned_words_on_cuda(cuda):
     """Words that start off a 16-byte boundary take the kernels' 4-byte
-    loads and give the same wires."""
-    words, fids, cids, budget = make_tail_case(CARD_CASES[0])
-    flat = torch.zeros(words.size + 1, dtype=torch.int32, device=cuda)
-    flat[1:] = _on(words, cuda).reshape(-1)
-    w = flat[1:].view(words.shape)
-    assert w.is_contiguous() and w.data_ptr() % 16
-    f, c = _on(fids, cuda), _on(cids, cuda)
-    assert torch.equal(CT.fused_compact_decode(w, f, c, budget),
-                       CT.fused_compact_decode_plain(w, f, c, budget))
-    assert torch.equal(CT.compact_global(w, budget), CT.compact_global_plain(w, budget))
+    loads and give the same wires, on the one-launch path and on the
+    single pass."""
+    for case in (CARD_CASES[0], next(c for c in CARD_CASES if c.name.startswith("B=1001"))):
+        words, fids, cids, budget = make_tail_case(case)
+        flat = torch.zeros(words.size + 1, dtype=torch.int32, device=cuda)
+        flat[1:] = _on(words, cuda).reshape(-1)
+        w = flat[1:].view(words.shape)
+        assert w.is_contiguous() and w.data_ptr() % 16
+        f, c = _on(fids, cuda), _on(cids, cuda)
+        assert torch.equal(CT.fused_compact_decode(w, f, c, budget),
+                           CT.fused_compact_decode_plain(w, f, c, budget))
+        assert torch.equal(CT.compact_global(w, budget), CT.compact_global_plain(w, budget))
+
+
+@pytest.mark.cuda
+def test_tail_kernels_in_a_graph_and_on_two_streams_on_cuda(cuda):
+    """The single pass's look-back flags and ticket start cleared on every
+    call: a CUDA graph of both wrappers replayed three times, and calls on
+    two streams at once, give the twins' wires."""
+    case = next(c for c in CARD_CASES if c.name.startswith("many topics"))
+    words, fids, cids, budget = make_tail_case(case)
+    w, f, c = _on(words, cuda), _on(fids, cuda), _on(cids, cuda)
+    want = (CT.fused_compact_decode_plain(w, f, c, budget), CT.compact_global_plain(w, budget))
+    CT.fused_compact_decode(w, f, c, budget)  # the build and the attributes
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        got = (CT.fused_compact_decode(w, f, c, budget), CT.compact_global(w, budget))
+    for _ in range(3):
+        for x in got:
+            x.fill_(7)
+        g.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    outs = []
+    for s in streams:
+        with torch.cuda.stream(s):
+            outs.append((CT.fused_compact_decode(w, f, c, budget), CT.compact_global(w, budget)))
+    torch.cuda.synchronize()
+    for got in outs:
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
 
 
 @pytest.mark.cuda

@@ -6,8 +6,10 @@ bit for bit over the whole ``[budget + B]`` wire, on
 ``bench/tail_cases.py``'s ``TAIL_CASES``: a topic matching every row at
 NC=64, a budget cut inside a topic, ``-1`` fids, B=1 with a budget of 256,
 the 32-bit ``compact_global`` wire at ``W*32 >= 65536``, an overflow, an
-NC that is no power of two, no routes, no topics. The kernels themselves
-run in ``tests/test_torch_cuda.py`` on the same cases."""
+NC that is no power of two, no routes, no topics, 64 topics at the
+broker's budget (the kernels' one-block path at its widest) and one topic
+of exactly 33 routes (past the register sort). The kernels themselves run
+in ``tests/test_torch_cuda.py`` on the same cases."""
 
 import jax
 import numpy as np
@@ -53,6 +55,8 @@ def test_tails_equal_jax(case):
     assert np.all(got[min(n, budget):budget] == 0)
     for t in case.full:
         assert cnts[t] == case.nc * 128
+    for t, n_t in case.exact:
+        assert cnts[t] == n_t and k[t] == n_t
     if case.budget is None:
         t = case.full[0]
         assert 0 < k[t] < cnts[t], "the budget cuts inside the full topic"
