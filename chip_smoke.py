@@ -20,8 +20,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
    words, every packed group count up to 30 levels / 16 groups, legacy L
    up to 40); each kernel and twin timed with CUDA events at B=16384,
    NC=32, and the kernel at the NC split's bucket shapes of that batch
-   (their per-batch sum) and on a small set of tiles; bounds at the FP32 and
-   the integer rate;
+   (their per-batch sum) and on a small set of tiles; bounds
+   (``bench/roofline_model.py``: the bytes and the instructions issued,
+   with the real table's literal levels);
 3t. compaction tails — ``fused_compact_decode`` and ``compact_global``
    against their plain twins (``torch.equal`` over the whole ``[budget +
    B]`` wire) on ``bench/tail_cases.py``'s ``CARD_CASES`` (a topic matching
@@ -90,9 +91,12 @@ Phases, each of which fails the run (nonzero exit, no result line):
    padded topics, a topic that matches nothing, topics past K, W below
    ``max_words``) and of 4d's 16,384-topic words batch; the forward timed
    at B = 16,384 (its twin once, also held to the kernel there) and at the
-   bitmap path's 1 and 8, the inverse at the 64-filter batch, the words
-   kernel at the 16,384-topic batch beside its twin and ``torch.topk`` on
-   the twin's keys, by CUDA events and graph replay, beside the bounds;
+   bitmap path's 1 and 8, the inverse at the 64-filter batch and at 1 and
+   8 filters (each small shape of both held to its twin), the words kernel
+   at the 16,384-topic batch beside its twin and ``torch.topk`` on the
+   twin's keys, by CUDA events and graph replay (warm: the 1M-row tables
+   fit the L2), beside the bounds, warm and cold; the small shapes also
+   with the L2 flushed before each call, beside the device-memory bound;
 4d. ``TorchRouter(backend="dense")`` over the same 1M filters
    (``RMQTT_HYBRID_MAX=0``): the 32,768 topics in batches of 16,384 (the
    words path; it prints how many overflowed to the bitmap path), 64
@@ -108,7 +112,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
    fp = 2 on 4d's table, its assembled bitmap and counts equal to
    ``DenseMatcher``'s; ``ShardedPartitionedMatcher`` at dp = 2 on phase 4's
    table, fused, unfused and topk, the 32,768 topics equal to phase 4's
-   matcher, the legacy words launches counted; a ``TorchRouter(mesh=...)``
+   matcher, the legacy words launches and the tails' (``compact_words``
+   for topk) counted; a ``TorchRouter(mesh=...)``
    of 20,000 filters routing 4 batches of 512 equal to its native trie
    mirror; the same over every card when there is more than one;
 4m. the matcher's hand-selected modes, after phase 4s, each a
@@ -122,9 +127,14 @@ Phases, each of which fails the run (nonzero exit, no result line):
    topic equal to the reference router's matcher at the same table
    version, then takes 2,000 removes and 2,000 adds as one delta upload
    (into its segments) and routes the topics again, equal; it prints
-   topics/s, the words-kernel launches and ``hbm_breakdown()``, and times
-   ``compact_words`` at the 16,384-topic shape and the delta scatter of 64
-   chunks into a 2,048-chunk segment by CUDA events;
+   topics/s, the words-kernel launches and ``hbm_breakdown()``; then the
+   topk mode's ``compact_words`` kernel against its twin (``torch.equal``
+   over the wire) on phase 4's words of 16,384 topics at ``max_words`` 32
+   and a regrow's 64 and of the broker's 1 and 8 topics, timed by CUDA
+   events and graph replay beside its twin, ``torch.topk`` on the unique
+   keys ``2W - idx`` / ``W - idx`` (its indices must equal the twin's) and
+   its bound; the delta scatter of 64 chunks into a 2,048-chunk segment by
+   CUDA events;
 6. the broker: ``python -m rmqtt_tpu_torch.broker --router xla`` as a child
    process with ``RMQTT_HYBRID_MAX=0`` (every batch on the device), driven
    over TCP by the load client of ``bench/mqtt_load.py``. 6a: 64 subscriber
@@ -267,10 +277,11 @@ from rmqtt_tpu_torch.bench.retained_cases import (RETAINED_CASES, TABLE_FILTERS,
                                                   make_retained_case, table_inputs,
                                                   table_topics)
 from rmqtt_tpu_torch.bench.retained_kernels import RETAINED_BATCH, card_line, real_shapes
-from rmqtt_tpu_torch.bench.roofline_model import (dense_bound_ms, dense_words_bound_ms,
+from rmqtt_tpu_torch.bench.roofline_model import (chunk_literals, dense_bound_ms,
+                                                  dense_words_bound_ms, literal_levels,
                                                   model_table, retained_bound_ms,
                                                   words_bound_ms)
-from rmqtt_tpu_torch.bench.timing import HBM_BYTES_PER_S, time_cuda, time_graph
+from rmqtt_tpu_torch.bench.timing import HBM_BYTES_PER_S, time_cold, time_cuda, time_graph
 from rmqtt_tpu_torch.bench.workloads import (gen_mixed, gen_retained_topics,
                                              gen_topics_uniform, retained_sub_filters)
 from rmqtt_tpu_torch.core.topic import match_filter, parse_shared, split_levels
@@ -300,6 +311,7 @@ KERNEL_SOURCE = {
     "dense_match_words": "rmqtt_tpu_torch/csrc/dense_match.cu",
     "fused_compact_decode": "rmqtt_tpu_torch/csrc/compact_tail.cu",
     "compact_global": "rmqtt_tpu_torch/csrc/compact_tail.cu",
+    "compact_words": "rmqtt_tpu_torch/csrc/dense_match.cu",
 }
 REPLACES = {
     "match_words_packed": "rmqtt_tpu/ops/pallas_match.py:288",
@@ -311,8 +323,10 @@ REPLACES = {
     "dense_match_words": "rmqtt_tpu/ops/match.py:151",
     "fused_compact_decode": "rmqtt_tpu/ops/partitioned.py:1356",
     "compact_global": "rmqtt_tpu/ops/partitioned.py:1251",
+    "compact_words": "rmqtt_tpu/ops/partitioned.py:1492",
 }
-TAILS = (CT.fused_compact_decode, CT.compact_global)
+#: the compaction tails' wrappers, their launches counted by path
+TAILS = (CT.fused_compact_decode, CT.compact_global, CT.compact_words)
 
 
 def log(msg: str) -> None:
@@ -413,8 +427,7 @@ def _kernel_pair(layout):
     return MW.match_words_legacy, MW.match_words_legacy_plain
 
 
-def _time_real(name: str, matcher, real, kern, plain, nlvl: int, s: dict,
-               dev) -> None:
+def _time_real(name: str, matcher, real, kern, plain, s: dict, dev) -> None:
     """Times on the real table at cfg3's shapes: the kernel, its twin, the
     bounds; the kernel at the NC split's bucket shapes for this batch (what
     one router batch launches) and with the real ids folded onto
@@ -424,7 +437,8 @@ def _time_real(name: str, matcher, real, kern, plain, nlvl: int, s: dict,
     s["ms"] = time_cuda(lambda: kern(*real), reps=50)
     s["graph_ms"] = time_graph(lambda: kern(*real), reps=10)
     s["plain_ms"] = time_cuda(lambda: plain(*real), reps=3, warmup=1)
-    s["bound_ms"], s["bound_by"], s["bound_int_ms"] = words_bound_ms(tiles, ttok, cids, nlvl)
+    s["bound_ms"], s["bound_by"], s["bound_term"] = words_bound_ms(
+        tiles, ttok, cids, chunk_literals(matcher.table))
     b = cids.shape[0]
     np_in = [a.cpu().numpy() for a in (ttok, tlen, tdollar, cids)]
     split = matcher._split_plan(np_in[3], b)
@@ -471,7 +485,7 @@ def phase_kernels(packed_router: TorchRouter, legacy_router: TorchRouter,
     hi[:, -1] = rng.integers(256, 400, len(hi))
     _compare("packed real, 2-byte level ids",
              kern_p, plain_p, (st.tiles, _put(hi, dev), *real_p[2:]), sp)
-    _time_real("packed real", pm, real_p, kern_p, plain_p, lay.nlvl, sp, dev)
+    _time_real("packed real", pm, real_p, kern_p, plain_p, sp, dev)
     # packed, random tiles incl. a 2-byte level; edge shapes
     for widths, b, nck in (((1, 1, 1, 1, 1, 2), batch, nc), ((2, 1, 2), 1023, 1),
                            ((1,), 7, 5), ((1, 2, 1, 1, 1, 1, 1, 1), 4097, 3)):
@@ -496,8 +510,7 @@ def phase_kernels(packed_router: TorchRouter, legacy_router: TorchRouter,
              real_l, sl)
     _compare("legacy real as int32", kern_l, plain_l,
              (lst.tiles.to(torch.int32).contiguous(), *real_l[1:]), sl)
-    _time_real("legacy real", lm, real_l, kern_l, plain_l, lst.tiles.shape[1] - 3,
-               sl, dev)
+    _time_real("legacy real", lm, real_l, kern_l, plain_l, sl, dev)
     for dtype, b, nck in ((np.int16, batch, nc), (np.int32, batch, nc),
                           (np.int16, 1023, 1), (np.int32, 9, 4)):
         tiles = torch.from_numpy(random_legacy_tiles(rng, 8, 512, dtype)).to(dev)
@@ -519,8 +532,7 @@ def phase_kernels(packed_router: TorchRouter, legacy_router: TorchRouter,
         _compare(case.name, *_kernel_pair(layc), args, s, bad)
     for name, s in stats.items():
         log(f"    {name}: {s['ms']:.4f} ms (plain {s['plain_ms']:.3f} ms, bound "
-            f"{s['bound_ms']:.4f} ms by {s['bound_by']} with operations at the "
-            f"FP32 rate, {s['bound_int_ms']:.4f} ms at the integer rate) over "
+            f"{s['bound_ms']:.4f} ms by {s['bound_by']} ({s['bound_term']})) over "
             f"{s['cases']} equal cases")
     return stats
 
@@ -584,13 +596,12 @@ def phase_retained_kernels(scanner, filters, dev) -> dict:
         s["ms"] = time_cuda(lambda: kern(*args), reps=50)
         s["graph_ms"] = time_graph(lambda: kern(*args), reps=20)
         s["plain_ms"] = time_cuda(lambda: plain(*args), reps=3, warmup=1)
-        s["bound_ms"], s["bound_by"], s["bound_int_ms"] = retained_bound_ms(
+        s["bound_ms"], s["bound_by"], s["bound_term"] = retained_bound_ms(
             st.rows, args[1:6], args[6] if mode == "gather" else None)
         s["shape"] = shape
         log(f"    {name} {label}: {s['graph_ms']:.5f} ms by graph replay at {shape}, "
             f"{s['ms']:.4f} ms per call through the wrapper, plain {s['plain_ms']:.3f} ms, "
-            f"bound {s['bound_ms']:.5f} ms by {s['bound_by']} ({s['bound_int_ms']:.5f} ms "
-            f"at the integer rate)")
+            f"bound {s['bound_ms']:.5f} ms by {s['bound_by']} ({s['bound_term']})")
     for case in RETAINED_CASES:
         tiles, fields, ids, bad, pids = make_retained_case(case)
         kern, plain = RETAINED_PAIRS[case.tier]
@@ -1173,45 +1184,86 @@ def phase_modes(packed_router: TorchRouter, legacy_router: TorchRouter, filters,
     return out
 
 
-def _time_mode_programs(router, topics, batch: int, card: str) -> dict:
-    """``compact_words`` at the 16,384-topic shape (phase 4's words of one
-    batch) and the delta scatter of 64 chunks into a 2,048-chunk segment,
-    by CUDA events, beside their bounds by bytes (``compact_global`` is
-    timed in 3t)."""
+def _mode_words(router, topics, dev) -> torch.Tensor:
+    """The packed words kernel's ``[B, 4 NC]`` words for ``topics`` on the
+    router's table (timing and check inputs, not a path's launch)."""
     t = router.table
     st = router.matcher._refresh()
-    ttok, tlen, tdollar, cids, _nc = t.encode_topics(topics[:batch], pad_batch_to=batch)
+    ttok, tlen, tdollar, cids, _nc = t.encode_topics(topics, pad_batch_to=len(topics))
     _lay, tt = t.translate_packed(ttok)
-    dev = st.tiles.device
     n0 = MW.match_words_packed.launches
     words = MW.match_words_packed(st.tiles, *(_put(a, dev) for a in (tt, tlen, tdollar, cids)),
                                   st.layout)
-    MW.match_words_packed.launches = n0  # a timing input, not a path's launch
+    MW.match_words_packed.launches = n0
+    return words
+
+
+def _time_mode_programs(router, topics, batch: int, card: str) -> dict:
+    """The topk mode's ``compact_words`` kernel against its twin
+    (``torch.equal`` over the wire) on phase 4's words of one batch at the
+    topk mode's ``max_words`` of 32 and a regrow's 64, and of the broker's
+    1 and 8 topics; timed at the batch's shape by CUDA events and graph
+    replay beside its twin, ``torch.topk`` on the unique keys ``2W - idx``
+    / ``W - idx`` (whose indices must equal the twin's) and its bound, and
+    at the other shapes by graph replay. The delta scatter of 64 chunks
+    into a 2,048-chunk segment by CUDA events, beside its bound by bytes
+    (``compact_global`` is timed in 3t)."""
+    st = router.matcher._refresh()
+    dev = st.tiles.device
+    words = _mode_words(router, topics[:batch], dev)
     b, w = words.shape
-    wbytes = words.numel() * 4
-    out = {}
+    n0 = CT.compact_words.launches
+    cw = {"small_ms": {}, "small_graph_ms": {}}
+    shapes = {"regrow K=64": (words, 64), 1: (_mode_words(router, topics[:1], dev), 32),
+              8: (_mode_words(router, topics[:8], dev), 32)}
+    for what, (wds, k) in ((f"B={b} K=32", (words, 32)), *shapes.items()):
+        got = CT.compact_words(wds, k)
+        want = CT.topk_wire_plain(wds, k)
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        cw["max_abs_err"] = max(cw.get("max_abs_err", 0), err)
+        cw["cases"] = cw.get("cases", 0) + 1
+        if not torch.equal(got, want):
+            raise AssertionError(f"compact_words {what}: the kernel's wire differs from the "
+                                 f"twin's (max abs err {err})")
+        if what in shapes:
+            cw["small_ms"][what] = time_cuda(lambda: CT.compact_words(wds, k),
+                                             reps=50)
+            cw["small_graph_ms"][what] = time_graph(
+                lambda: CT.compact_words(wds, k), reps=10)
+        log(f"    compact_words {what}: equal, [{wds.shape[0]}, {wds.shape[1]}], "
+            f"{int((wds != 0).sum())} nonzero words")
     kw = min(32, w)
-    out["compact_words"] = {
-        "ms": time_cuda(lambda: PP.compact_words(words, 32), reps=20),
-        "bound_ms": (wbytes + b * (2 * kw + 1) * 4) / HBM_BYTES_PER_S * 1e3,
-        "shape": [b, w], "max_words": 32}
-    val = torch.where(words != 0, w - torch.arange(w, dtype=torch.int32, device=dev), 0)
-    out["compact_words"]["library_ms"] = time_cuda(lambda: torch.topk(val, kw), reps=20)
+    idx = torch.arange(w, dtype=torch.int32, device=dev)
+    keys = torch.where(words != 0, 2 * w - idx, w - idx)
+    want_idx = CT.match_words_plain(words, 32)[0]
+    if not torch.equal(torch.topk(keys, kw, dim=1).indices.to(torch.int32), want_idx):
+        raise AssertionError("torch.topk on the unique keys differs from compact_words")
+    cw["ms"] = time_cuda(lambda: CT.compact_words(words, 32), reps=50)
+    cw["graph_ms"] = time_graph(lambda: CT.compact_words(words, 32), reps=10)
+    cw["plain_ms"] = time_cuda(lambda: CT.topk_wire_plain(words, 32), reps=20)
+    cw["library_ms"] = time_cuda(lambda: torch.topk(keys, kw, dim=1), reps=20)
+    cw["bound_ms"], cw["bound_by"], cw["bound_term"] = dense_words_bound_ms(b, w, kw)
+    cw["shape"] = [b, w, kw]
+    CT.compact_words.launches = n0  # checks and timings, not a path's launches
+    log(f"    compact_words: {cw['ms']:.4f} ms at [{b}, {w}] K={kw} by CUDA events "
+        f"({cw['graph_ms']:.4f} by graph replay), plain {cw['plain_ms']:.4f} ms, "
+        f"torch.topk on the unique keys {cw['library_ms']:.4f} ms (the same indices), "
+        f"bound {cw['bound_ms']:.5f} ms by {cw['bound_by']}; by graph replay "
+        f"{ {k: round(v, 4) for k, v in cw['small_graph_ms'].items()} }; "
+        f"{cw['cases']} equal cases; {card}")
     seg = st.tiles[:2049].clone()  # a segment of 2,048 chunks and its lead chunk
     k = 64
     idx = torch.arange(1, seg.shape[0], max(1, (seg.shape[0] - 1) // k),
                        device=dev)[:k]
     rows = st.tiles[:k].clone()
     tile_bytes = st.tiles[0].numel() * st.tiles.element_size()
-    out["delta_scatter"] = {
-        "ms": time_cuda(lambda: PP._scatter_rows(seg, idx, rows), reps=50),
-        "bound_ms": (2 * k * tile_bytes + k * 8) / HBM_BYTES_PER_S * 1e3,
-        "library_ms": "the same call (index_copy_)", "chunks": k}
-    for name, r in out.items():
-        log(f"    {name}: {r['ms']:.4f} ms by CUDA events, bound {r['bound_ms']:.5f} ms "
-            f"by bytes; library {r['library_ms'] if not isinstance(r['library_ms'], float) else round(r['library_ms'], 4)}; "
-            f"{ {k2: v for k2, v in r.items() if k2 not in ('ms', 'bound_ms', 'library_ms')} }; {card}")
-    return out
+    r = {"ms": time_cuda(lambda: PP._scatter_rows(seg, idx, rows), reps=50),
+         "bound_ms": (2 * k * tile_bytes + k * 8) / HBM_BYTES_PER_S * 1e3,
+         "library_ms": "the same call (index_copy_)", "chunks": k}
+    log(f"    delta_scatter: {r['ms']:.4f} ms by CUDA events, bound {r['bound_ms']:.5f} ms "
+        f"by bytes; library {r['library_ms']}; {k} chunks; {card}")
+    return {"compact_words": cw, "delta_scatter": r}
 
 
 # ------------------------------------------------------ phase 3d, 4d, 4s
@@ -1276,8 +1328,8 @@ def phase_dense_kernels(router, scanner, topics, sub_filters, batch: int, dev) -
     topics and of ``WORDS_CASES``; timed by CUDA events and graph replay
     beside the twins' times and the bounds: the forward at B = ``batch``, 1
     and 8 (the words and bitmap paths of 4d), the inverse at the 64-filter
-    batch, the words kernel at ``batch`` beside ``torch.topk`` on its
-    twin's keys."""
+    batch, 1 and 8 (each small shape held to the twin too), the words
+    kernel at ``batch`` beside ``torch.topk`` on its twin's keys."""
     log("[3d] the dense kernels against their plain twins")
     stats = {name: {} for name in (*DENSE_PAIRS, "dense_match_words")}
     fwd_rows = router.matcher._refresh()
@@ -1331,25 +1383,39 @@ def phase_dense_kernels(router, scanner, topics, sub_filters, batch: int, dev) -
             s["cases"] += 1
             del want
             packed = got
-            s["small_ms"], s["small_graph_ms"] = {}, {}
-            for sb in (1, 8):
-                sargs = (*fwd_rows, *as_tensors(t.encode_topics(topics[:sb]), dev))
-                s["small_ms"][sb] = time_cuda(lambda: kern(*sargs), reps=50)
-                s["small_graph_ms"][sb] = time_graph(lambda: kern(*sargs), reps=10)
         else:
             s["plain_ms"] = time_cuda(lambda: plain(*args), reps=3, warmup=1)
         rows, lvl = args[0].shape
-        s["bound_ms"], s["bound_by"], s["bound_int_ms"] = dense_bound_ms(rows, lvl, b)
+        s["bound_ms"], s["bound_by"], s["bound_term"] = _dense_bound(name, args)
+        s["warm_bound_ms"] = _dense_bound(name, args, warm=True)[0]
         s["shape"] = [b, rows, lvl]
+        # the bitmap path's batches (forward) and a SUBSCRIBE's one filter
+        # and 8 (inverse), each held to the twin; by CUDA events and graph
+        # replay (warm: each call finds the ~42 MB table in the 50 MB L2)
+        # beside the warm bound, and with the L2 flushed before each call
+        # beside the device-memory bound
+        for key in ("small_ms", "small_graph_ms", "small_cold_ms", "small_bound_ms",
+                    "small_warm_bound_ms"):
+            s[key] = {}
+        for sb in (1, 8):
+            sargs = (*args[:5], *as_tensors(t.encode_topics(topics[:sb]), dev)) if big else (
+                *args[:3], *as_tensors(scanner.table.encode_filters(sub_filters[:sb]), dev))
+            _compare(f"{name} B={sb}", kern, plain, sargs, s)
+            s["small_ms"][sb] = time_cuda(lambda: kern(*sargs), reps=50)
+            s["small_graph_ms"][sb] = time_graph(lambda: kern(*sargs), reps=10)
+            s["small_cold_ms"][sb] = time_cold(lambda: kern(*sargs), reps=20)
+            s["small_bound_ms"][sb] = _dense_bound(name, sargs)[0]
+            s["small_warm_bound_ms"][sb] = _dense_bound(name, sargs, warm=True)[0]
         log(f"    {name}: {s['ms']:.4f} ms at B={b} x {rows} rows x {lvl} levels "
             f"({s['graph_ms']:.4f} ms by graph replay), plain {s['plain_ms']:.3f} ms, "
-            f"bound {s['bound_ms']:.4f} ms by {s['bound_by']} with operations at the "
-            f"FP32 rate, {s['bound_int_ms']:.4f} ms at the integer rate; "
-            f"{s['cases']} equal cases" + (
-                f"; at B=1 / 8 {s['small_ms'][1]:.4f} / {s['small_ms'][8]:.4f} ms "
-                f"({s['small_graph_ms'][1]:.4f} / {s['small_graph_ms'][8]:.4f} by graph "
-                f"replay; bound {dense_bound_ms(rows, lvl, 1)[0]:.4f} / "
-                f"{dense_bound_ms(rows, lvl, 8)[0]:.4f})" if big else ""))
+            f"bound {s['bound_ms']:.4f} ms by {s['bound_by']} ({s['bound_term']}), warm "
+            f"{s['warm_bound_ms']:.4f}; {s['cases']} equal cases; at B=1 / 8 "
+            f"{s['small_ms'][1]:.4f} / {s['small_ms'][8]:.4f} ms "
+            f"({s['small_graph_ms'][1]:.4f} / {s['small_graph_ms'][8]:.4f} by graph "
+            f"replay, warm bound {s['small_warm_bound_ms'][1]:.4f} / "
+            f"{s['small_warm_bound_ms'][8]:.4f}; {s['small_cold_ms'][1]:.4f} / "
+            f"{s['small_cold_ms'][8]:.4f} with the L2 flushed, bound "
+            f"{s['small_bound_ms'][1]:.4f} / {s['small_bound_ms'][8]:.4f})")
     # the words kernel on the forward bitmap of the words path's batch
     s = stats["dense_match_words"]
     k = router.matcher.max_matches
@@ -1363,7 +1429,7 @@ def phase_dense_kernels(router, scanner, topics, sub_filters, batch: int, dev) -
     keys = torch.where(packed != 0, 2 * w - idx, w - idx)
     s["library_ms"] = time_cuda(lambda: torch.topk(keys, kw, dim=1), reps=5, warmup=1)
     del keys
-    s["bound_ms"], s["bound_by"], s["bound_int_ms"] = dense_words_bound_ms(bw, w, kw)
+    s["bound_ms"], s["bound_by"], s["bound_term"] = dense_words_bound_ms(bw, w, kw)
     s["shape"] = [bw, w, kw]
     log(f"    dense_match_words: {s['ms']:.4f} ms at [{bw}, {w}] words, K={kw} "
         f"({s['graph_ms']:.4f} ms by graph replay), plain {s['plain_ms']:.3f} ms, "
@@ -1375,6 +1441,20 @@ def phase_dense_kernels(router, scanner, topics, sub_filters, batch: int, dev) -
     torch.cuda.empty_cache()
     log(f"    {card_line()}")
     return stats
+
+
+def _dense_bound(name: str, args, warm: bool = False):
+    """``dense_bound_ms`` of one dense scan call on its wrapper's arguments,
+    with the literal levels its pairs compare: the forward's rows' (the
+    filters) for every topic, the inverse's filters' for every row; cold,
+    or ``warm`` for a call repeated on the same inputs."""
+    rows, lvl = args[0].shape
+    b = args[5].shape[0] if name == "dense_match_packed" else args[3].shape[0]
+    if name == "dense_match_packed":
+        literal = b * int(literal_levels(args[0], args[2], args[1] >= 0).sum())
+    else:
+        literal = rows * int(literal_levels(args[3], args[5], args[4] != -2).sum())
+    return dense_bound_ms(rows, lvl, b, literal, warm)
 
 
 def _time_dense_programs(router, topics, dev) -> dict:
@@ -3305,6 +3385,7 @@ def main(argv=None) -> int:
     modes = timed("4m", phase_modes, packed_router, legacy_router, filters, topics,
                   args.batch, args.churn, args.seed)
     tails["4m"] = {k.__name__: k.launches for k in TAILS}
+    stats["compact_words"] = modes["programs"]["compact_words"]
     del legacy_router  # the broker phase needs the room
 
     # the brokers run in child processes: their launches are the
@@ -3365,7 +3446,10 @@ def main(argv=None) -> int:
     by_path["compact_global"] = {
         "router modes, phase 4m": tails["4m"]["compact_global"],
         "sharded partitioned matcher, phase 4s": tails["4s"]["compact_global"]}
-    for name in ("fused_compact_decode", "compact_global"):
+    by_path["compact_words"] = {
+        "router modes, phase 4m (b)": tails["4m"]["compact_words"],
+        "sharded partitioned matcher, phase 4s": tails["4s"]["compact_words"]}
+    for name in ("fused_compact_decode", "compact_global", "compact_words"):
         for path, n in by_path[name].items():
             if n <= 0:
                 raise AssertionError(f"{name} was never launched on its path {path}")
@@ -3390,7 +3474,7 @@ def main(argv=None) -> int:
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": s.get("library_ms"),
             "equal_to_plain": True, "cases": s["cases"],
-            "bound_int_ms": s["bound_int_ms"], "graph_ms": s["graph_ms"],
+            "bound_term": s["bound_term"], "graph_ms": s["graph_ms"],
         }
         if "small_set_ms" in s:
             row.update(small_set_ms=s["small_set_ms"],
@@ -3403,8 +3487,9 @@ def main(argv=None) -> int:
                        ops_by_shape={k: r["ops"]["kernels"] + r["ops"]["memsets"]
                                      for k, r in s["shapes"].items()})
         else:
-            row.update({k: s[k] for k in ("shape", "one_filter", "small_ms", "small_graph_ms")
-                        if k in s})
+            row.update({k: s[k] for k in ("shape", "one_filter", "warm_bound_ms", "small_ms",
+                                          "small_graph_ms", "small_warm_bound_ms",
+                                          "small_cold_ms", "small_bound_ms") if k in s})
         kernels.append(row)
     log(f"[8] kernels (total run {time.perf_counter() - t_start:.1f}s; seconds by "
         f"phase {({k: round(v, 1) for k, v in PHASE_S.items()})}); retained "
@@ -3417,10 +3502,14 @@ def main(argv=None) -> int:
         f"4d dense router {dense['topics_per_s']:.1f} topics/s at {args.batch} a batch "
         f"({dense['overflowed']} overflowed), "
         f"{ {k: round(v, 1) for k, v in dense['small_topics_per_s'].items()} } at 1 and 8, "
-        f"dense retained {dense['scans_per_s']:.1f} scans/s; 3d forward / words / "
-        f"match_compact ms {stats['dense_match_packed']['graph_ms']:.4f} / "
+        f"dense retained {dense['scans_per_s']:.1f} scans/s; 3d forward / inverse / words "
+        f"/ match_compact ms {stats['dense_match_packed']['graph_ms']:.4f} / "
+        f"{stats['dense_match_retained']['graph_ms']:.4f} / "
         f"{stats['dense_match_words']['graph_ms']:.4f} / "
-        f"{dense_programs['match_compact']['ms']:.4f}; 3t fused tail / compact_global "
+        f"{dense_programs['match_compact']['ms']:.4f}; 4m compact_words ms "
+        f"{stats['compact_words']['graph_ms']:.4f} by graph replay (plain "
+        f"{stats['compact_words']['plain_ms']:.4f}, torch.topk "
+        f"{stats['compact_words']['library_ms']:.4f}); 3t fused tail / compact_global "
         f"ms {stats['fused_compact_decode']['ms']:.4f} / {stats['compact_global']['ms']:.4f} "
         f"(graph {stats['fused_compact_decode']['graph_ms']:.4f} / "
         f"{stats['compact_global']['graph_ms']:.4f}; plain "

@@ -8,8 +8,12 @@ path's batch (16,384 ``gen_topics_uniform`` topics) and at the bitmap
 path's batches of 1, 8, 33 and 64 (``DenseMatcher.match`` fetches the
 bitmap while it is at most 8 MiB: batches padded to a power of two up to
 64, and an overflow re-match of any size), and the words kernel on the
-forward bitmap of the 16,384 topics. ``dense_bound_ms`` and ``dense_words_bound_ms``
-(``bench/roofline_model.py``) are the least time the card could take.
+forward bitmap of the 16,384 topics; and the inverse scan on chip_smoke
+4d's retained table (a ``FilterTable`` of cfg5's 1,000,000 retained draws,
+seed 5: 2^20 rows x 8 levels) at its scanner's batch of 64 filters of
+``retained_sub_filters`` and at 1 (a SUBSCRIBE's shape) and 8.
+``dense_bound_ms`` and ``dense_words_bound_ms`` (``bench/roofline_model.py``)
+are the least time the card could take.
 
     python -m rmqtt_tpu_torch.bench.dense_kernels [--other OLD.cu ...] [--passes N]
 
@@ -17,10 +21,13 @@ builds each ``OLD.cu`` (another ``dense_match.cu``, for example an earlier
 commit's: ``git show <commit>:rmqtt_tpu_torch/csrc/dense_match.cu``) into a
 library of its own beside the current one, holds every library's forward
 bitmap to the plain twin at B = 1, 8, 33, 64 and 1,024 and to the current
-library's at 16,384, and the words kernel to its twin; then times each
-library's forward in turns (the others, this, this, the others reversed)
-by CUDA events and CUDA-graph replay, and the words kernel beside its twin
-and ``torch.topk`` on the twin's keys, and samples the SM clock and the
+library's at 16,384, every library's inverse bitmap to the twin, and the
+words kernel to its twin; then times each library's forward and inverse
+in turns (the others, this, this, the others reversed) by CUDA events and
+CUDA-graph replay (the inverse also with the L2 cache flushed before each
+call: its 2^20 x 8 table, ~37 MB, fits the 50 MB L2), and the words
+kernel beside its twin and ``torch.topk`` on the twin's keys, and
+samples the SM clock and the
 power draw (``nvidia-smi``) while this forward runs at 16,384 topics for
 about two seconds. With ``--passes N`` and an ``--other`` it times the
 dense words path end to end in turns: N passes of the 32,768 topics in
@@ -50,17 +57,22 @@ import numpy as np
 import torch
 
 from rmqtt_tpu_torch.bench.retained_kernels import card_line
-from rmqtt_tpu_torch.bench.roofline_model import dense_bound_ms, dense_words_bound_ms
-from rmqtt_tpu_torch.bench.timing import time_cuda, time_graph
-from rmqtt_tpu_torch.bench.workloads import gen_mixed, gen_topics_uniform
+from rmqtt_tpu_torch.bench.roofline_model import (dense_bound_ms, dense_words_bound_ms,
+                                                  literal_levels)
+from rmqtt_tpu_torch.bench.timing import time_cold, time_cuda, time_graph
+from rmqtt_tpu_torch.bench.workloads import (gen_mixed, gen_retained_topics,
+                                             gen_topics_uniform, retained_sub_filters)
 from rmqtt_tpu_torch.ops import match as DM
 from rmqtt_tpu_torch.ops._build import kernel_library, load_library
+from rmqtt_tpu_torch.ops.encode import FilterTable
 from rmqtt_tpu_torch.router import Id, SubscriptionOptions, TorchRouter
 
 BATCH = 16_384  # the words path's batch (chip_smoke.py 4d)
 SMALL = (1, 8, 33, 64)  # the bitmap path's batches (4d: 1 and 8)
 CHECK = 1_024  # the batch the twin checks every library at
 FILTERS = 1_000_000  # cfg3's filters (chip_smoke.py 4d)
+RETAINED = 1_000_000  # cfg5's retained draws (chip_smoke.py 4d)
+INVERSE = (1, 8, 64)  # the inverse's batches: a SUBSCRIBE, 8, the scanner's 64
 
 
 def forward_call(lib, args):
@@ -80,6 +92,82 @@ def forward_call(lib, args):
         if err:
             raise RuntimeError(f"launch_dense_match_packed: CUDA error {err}")
     return call, out
+
+
+def inverse_call(lib, args):
+    """A launch of ``lib``'s ``launch_dense_match_retained`` on ``args`` (the
+    inverse wrapper's eight tensors), as :func:`forward_call`."""
+    rtok, rlen, rdollar, ftok, flen, fpre, fh, fw = args
+    f, lvl = rtok.shape
+    b = ftok.shape[0]
+    out = torch.empty((b, f // 32), dtype=torch.int32, device=rtok.device)
+
+    def call():
+        err = lib.launch_dense_match_retained(
+            rtok.data_ptr(), rlen.data_ptr(), rdollar.data_ptr(), f, lvl, ftok.data_ptr(),
+            flen.data_ptr(), fpre.data_ptr(), fh.data_ptr(), fw.data_ptr(), b,
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"launch_dense_match_retained: CUDA error {err}")
+    return call, out
+
+
+def on_card(arrays, dev):
+    """numpy arrays (int32, or bool flags) → contiguous tensors on ``dev``."""
+    return tuple(torch.from_numpy(np.ascontiguousarray(
+        a, dtype=bool if a.dtype == np.bool_ else np.int32)).to(dev) for a in arrays)
+
+
+def retained_table(dev, seed: int):
+    """4d's retained table on the card: a ``FilterTable`` of cfg5's
+    :data:`RETAINED` draws → (its rows ``(rtok, rlen, rdollar)``, the
+    table, the subscriber mix)."""
+    t0 = time.perf_counter()
+    table = FilterTable()
+    for topic in gen_retained_topics(random.Random(seed + 5), RETAINED):
+        table.add(topic)
+    print(f"retained table: capacity {table.capacity} x {table.max_levels} levels, "
+          f"built in {time.perf_counter() - t0:.1f}s", flush=True)
+    return (on_card((table.tok, table.flen, table.row_dollar), dev), table,
+            retained_sub_filters(random.Random(5)))
+
+
+def inverse_shapes(libs, others, rows, table, subs, dev) -> list:
+    """The inverse on 4d's retained table (:func:`retained_table`) at
+    :data:`INVERSE`: every library held to the twin, then timed in turns
+    (the others, this, this, the others reversed) by CUDA events, graph
+    replay (the table warm in the L2 cache) and with the L2 cache flushed
+    before each call → a row a batch."""
+    out = []
+    for b in INVERSE:
+        iargs = (*rows, *on_card(table.encode_filters(subs[:b]), dev))
+        calls = {name: inverse_call(lib, iargs) for name, lib in libs.items()}
+        for call, _out in calls.values():
+            call()
+        want = DM.match_retained_plain(*iargs)
+        torch.cuda.synchronize()
+        for name, (_call, got) in calls.items():
+            if not torch.equal(got, want):
+                raise AssertionError(f"{name}'s inverse differs from the twin at B={b}")
+        row = {"kernel": "dense_match_retained", "b": b,
+               **{name: {"ms": [], "graph_ms": [], "cold_ms": []} for name in libs}}
+        for name in [*others, "this", "this", *others[::-1]]:  # in turns
+            call = calls[name][0]
+            row[name]["ms"].append(time_cuda(call, reps=50))
+            row[name]["graph_ms"].append(time_graph(call, reps=10))
+            row[name]["cold_ms"].append(time_cold(call, reps=20))
+        lit = int(literal_levels(iargs[3], iargs[5], iargs[4] != -2).sum())
+        f, lvl = rows[0].shape
+        row["bound_ms"], row["bound_by"], row["bound_term"] = dense_bound_ms(f, lvl, b,
+                                                                             f * lit)
+        row["warm_bound_ms"] = dense_bound_ms(f, lvl, b, f * lit, warm=True)[0]
+        print(f"dense_match_retained B={b}: " + "; ".join(f"{n} {row[n]}" for n in libs)
+              + f"; bound {row['bound_ms']:.5f} ms by {row['bound_by']} "
+              f"({row['bound_term']}) for cold_ms, {row['warm_bound_ms']:.5f} warm for "
+              "ms and graph_ms; all equal to the twin", flush=True)
+        out.append(row)
+        del calls, want
+    return out
 
 
 def packed_with(lib):
@@ -215,9 +303,9 @@ def main(argv=None) -> int:
           f"levels, built in {time.perf_counter() - t0:.1f}s", flush=True)
 
     def batch_args(b):
-        enc = table.encode_topics(topics[:b])
-        return (*rows, *(torch.from_numpy(np.ascontiguousarray(
-            a, dtype=bool if a.dtype == np.bool_ else np.int32)).to(dev) for a in enc))
+        return (*rows, *on_card(table.encode_topics(topics[:b]), dev))
+
+    lit_rows = int(literal_levels(rows[0], rows[2], rows[1] >= 0).sum())
 
     shapes = []
     for b in (*SMALL, CHECK, BATCH):
@@ -244,11 +332,11 @@ def main(argv=None) -> int:
             row[name]["ms"].append(time_cuda(call, reps=3 if big else 50, warmup=1))
             row[name]["graph_ms"].append(time_graph(call, reps=2 if big else 10,
                                                     per_graph=2 if big else 20))
-        row["bound_ms"], row["bound_by"], row["bound_int_ms"] = dense_bound_ms(
-            rows[0].shape[0], rows[0].shape[1], b)
+        row["bound_ms"], row["bound_by"], row["bound_term"] = dense_bound_ms(
+            rows[0].shape[0], rows[0].shape[1], b, b * lit_rows)
         print(f"dense_match_packed B={b}: " + "; ".join(f"{n} {row[n]}" for n in libs)
               + f"; bound {row['bound_ms']:.5f} ms by {row['bound_by']} "
-              f"({row['bound_int_ms']:.5f} at the integer rate); all equal", flush=True)
+              f"({row['bound_term']}); all equal", flush=True)
         shapes.append(row)
         if big:
             packed = ref
@@ -279,16 +367,17 @@ def main(argv=None) -> int:
     shapes.append(row)
     del packed
     torch.cuda.empty_cache()
+    shapes.extend(inverse_shapes(libs, others, *retained_table(dev, args.seed), dev))
 
     passes = {}
     if args.passes and others:
-        kernel_fwd, kernel_words = DM.match_packed, DM.match_words
-        before = (packed_with(libs[others[0]]), DM.match_words_plain)
+        kernel_fwd, kernel_words = DM.match_packed, DM.match_words_wire
+        before = (packed_with(libs[others[0]]), DM.topk_wire_plain)
         routes = {"matcher": matcher.match,
                   "router": lambda bt: router.matches_batch_raw([(None, t) for t in bt])}
         first = {}
         for turn, name in enumerate(("before", "this", "this", "before")):
-            DM.match_packed, DM.match_words = before if name == "before" else (
+            DM.match_packed, DM.match_words_wire = before if name == "before" else (
                 kernel_fwd, kernel_words)
             try:
                 for what, route in routes.items():
@@ -303,7 +392,7 @@ def main(argv=None) -> int:
                     print(f"words path turn {turn} ({name}), {what}: topics/s "
                           f"{[round(len(topics) / x, 1) for x in secs]}", flush=True)
             finally:
-                DM.match_packed, DM.match_words = kernel_fwd, kernel_words
+                DM.match_packed, DM.match_words_wire = kernel_fwd, kernel_words
     print(json.dumps({"card": card, "others": others, "shapes": shapes,
                       "words_path_topics_per_s": passes}), flush=True)
     return 0

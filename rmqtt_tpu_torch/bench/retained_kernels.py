@@ -177,11 +177,11 @@ def main(argv=None) -> int:
         for name in [*others, "this", "this", *others[::-1]]:  # in turns
             row[name]["graph_ms"].append(time_graph(calls[name], reps=20))
             row[name]["call_ms"].append(time_cuda(calls[name], reps=50))
-        row["bound_ms"], row["bound_by"], row["bound_int_ms"] = retained_bound_ms(
+        row["bound_ms"], row["bound_by"], row["bound_term"] = retained_bound_ms(
             st.rows, dargs[1:6], dargs[6] if mode == "gather" else None)
         print(f"{label} {mode} {shape}: " + "; ".join(f"{n} {row[n]}" for n in libs)
               + f"; bound {row['bound_ms']:.5f} ms by {row['bound_by']} "
-              f"({row['bound_int_ms']:.5f} at the integer rate); all equal to the twin",
+              f"({row['bound_term']}); all equal to the twin",
               flush=True)
         rows.append(row)
     print(json.dumps({"card": card, "others": others, "shapes": rows}), flush=True)

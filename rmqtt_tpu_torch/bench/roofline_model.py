@@ -32,7 +32,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from rmqtt_tpu_torch.bench.timing import HBM_BYTES_PER_S, INT_OPS_PER_S, SCALAR_OPS_PER_S
+from rmqtt_tpu_torch.bench.timing import (HBM_BYTES_PER_S, INSTR_PER_S, L2_BYTES,
+                                          SM_LOAD_BYTES_PER_S)
 from rmqtt_tpu_torch.ops.encode import PLUS_TOK
 from rmqtt_tpu_torch.ops.partitioned import CHUNK, WORDS_PER_CHUNK
 
@@ -102,53 +103,110 @@ def model_table(table, ncs: Sequence[int], bw_gbps: float = H100_HBM_GBPS,
 
 
 # ------------------------------------------------- the kernels' least time
-def _bound(nbytes: int, ops: int):
-    """→ (the larger of the bytes over the memory rate and the operations
-    over the FP32 rate, in ms; "bytes" or "operations"; the same bound with
-    the operations at the integer rate)."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / SCALAR_OPS_PER_S * 1e3
-    t_int = ops / INT_OPS_PER_S * 1e3
-    return (max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"),
-            max(t_bytes, t_int))
+# A kernel's least time on the H100 is the larger of two: the bytes it
+# must move over the memory rate and the lane-instructions it must issue
+# over the issue rate (one warp instruction a clock on each of an SM's four
+# schedulers).
+#
+# The bytes go at the device-memory rate for a call whose inputs are cold,
+# as a caller that touched other data since the last call finds them. A
+# call repeated on the same inputs (a CUDA-graph replay) finds up to the
+# L2 cache's 50 MB of them there: only the rest must come from device
+# memory, and every byte still passes the SMs' loads, at 128 bytes a clock
+# an SM. That ``warm`` bound is far below the cold one for a table that
+# fits the L2: the L2's own rate is not published, so it is the one that
+# holds.
+#
+# A full-scan row test (the words kernels, the dense scans) of one query
+# against one row must fold a difference for each literal level (a level
+# below the filter's prefix that is not '+': ``r - t`` by an IMAD, or ``r ^
+# t`` folded straight in by a LOP3) and one for the length rule, at least
+# one instruction each, and turn the test into its bit, one more (a vote or
+# a shift). A 3-input LOP3 folds at most two differences into the test,
+# and its predicate output can be the test's result: the ALU pipe's floor
+# is half an operation a difference at half the issue rate, and the FMA
+# pipe's IMAD can make any difference, so no pipe's own rate binds before
+# the issue rate. With the tokens as the 32-bit values the tables hold, no
+# kernel of the same scan does less.
 
 
-def words_bound_ms(tiles, ttok, chunk_ids, nlvl: int):
-    """Least time for one words call on these inputs: the larger of the
-    bytes it must move (each referenced tile, each input read once, the
-    words written once) over the memory rate and its integer operations
-    (~(2*nlvl+6) per row tested) over the scalar rate. Chunk 0 is the
-    table's empty chunk: a slot naming it (padding) needs no tile read and
-    no row test, only its zero words. → (bound ms, "bytes" or
-    "operations", the same bound with the operations at the integer rate)."""
+def _bound(nbytes: int, issue: float, warm: bool = False):
+    """→ (the least time in ms: the larger of the bytes over the memory
+    rate, cold or ``warm`` (see above), and the lane-instructions ``issue``
+    over the issue rate; "bytes" or "operations"; which term set it:
+    "bytes" or "issue")."""
+    moved = (max(max(nbytes - L2_BYTES, 0) / HBM_BYTES_PER_S, nbytes / SM_LOAD_BYTES_PER_S)
+             if warm else nbytes / HBM_BYTES_PER_S)
+    terms = {"bytes": moved, "issue": issue / INSTR_PER_S}
+    term = max(terms, key=terms.get)
+    return terms[term] * 1e3, "bytes" if term == "bytes" else "operations", term
+
+
+def row_test_work(pairs: int, literal: int) -> int:
+    """The least lane-instructions of ``pairs`` row tests that compare
+    ``literal`` literal levels in all (see above): a difference for each
+    literal level and each test's length rule, and each test's bit."""
+    return literal + 2 * pairs
+
+
+def literal_levels(tok: torch.Tensor, prefix: torch.Tensor, live: torch.Tensor):
+    """Literal levels of each live row of a ``[N, L]`` token table: levels
+    below ``min(prefix, L)`` whose token is not '+' (a row that is not
+    live counts none) → ``[N]`` int64."""
+    lvl = tok.shape[1]
+    below = torch.arange(lvl, device=tok.device)[None, :] < prefix.to(torch.int64)[:, None]
+    return ((below & (tok != PLUS_TOK)).sum(dim=1) * live).to(torch.int64)
+
+
+def chunk_literals(table) -> torch.Tensor:
+    """Literal levels of each row chunk of a ``PartitionedTable`` (its live
+    rows: ``flen >= 0``) → ``[nchunks]`` int64, the ``lit_chunk`` of
+    :func:`words_bound_ms`."""
+    rows = table.nchunks * CHUNK
+    lit = literal_levels(torch.from_numpy(table.tok[:rows]),
+                         torch.from_numpy(table.prefix_len[:rows]),
+                         torch.from_numpy(table.flen[:rows] >= 0))
+    return lit.reshape(table.nchunks, CHUNK).sum(dim=1)
+
+
+def words_bound_ms(tiles, ttok, chunk_ids, lit_chunk: torch.Tensor):
+    """Least time for one words call on these inputs: the bytes it must
+    move (each referenced tile, each input read once, the words written
+    once) and :func:`row_test_work` of its row tests (each real slot's
+    ``CHUNK`` rows, with the literal levels ``lit_chunk`` of their chunk).
+    Chunk 0 is the table's empty chunk: a slot naming it (padding) needs no
+    tile read and no row test, only its zero words. → :func:`_bound`."""
     b, nc = chunk_ids.shape
     tile_bytes = tiles[0].numel() * tiles.element_size()
     real = chunk_ids != 0
     used = torch.unique(chunk_ids[real]).numel()
     nbytes = (used * tile_bytes + chunk_ids.numel() * 4 + ttok.numel() * 4
               + 2 * b * 4 + b * nc * WORDS_PER_CHUNK * 4)
-    ops = int(real.sum()) * CHUNK * (2 * nlvl + 6)
-    return _bound(nbytes, ops)
+    literal = int(lit_chunk.to(chunk_ids.device)[chunk_ids[real].long()].sum())
+    return _bound(nbytes, row_test_work(int(real.sum()) * CHUNK, literal))
 
 
-def dense_bound_ms(rows: int, lvl: int, b: int):
-    """Least time for one dense scan of ``b`` topics (filters) against
-    ``rows`` rows of ``lvl`` levels: every (topic, row) pair is tested, at
-    ~(2*lvl+6) integer operations a test (the words kernels' convention),
-    whatever the data; the bytes are the table (tokens and ~10 bytes of
-    metadata a row) and the batch read once and the bitmap written once.
-    → (bound ms with the operations at the FP32 rate, "bytes" or
-    "operations", the same at the integer rate)."""
-    nbytes = rows * (lvl * 4 + 10) + b * (lvl * 4 + 10) + b * rows // 8
-    ops = b * rows * (2 * lvl + 6)
-    return _bound(nbytes, ops)
+def dense_bound_ms(rows: int, lvl: int, b: int, literal: int, warm: bool = False):
+    """Least time for one dense scan of ``b`` queries (topics, or the
+    inverse's filters) against ``rows`` rows of ``lvl`` levels: every
+    (query, row) pair is tested, whatever the data, comparing ``literal``
+    literal levels in all (the forward: ``b`` times the rows'
+    :func:`literal_levels`; the inverse: ``rows`` times the filters'); the
+    bytes are the table and the batch read once, tokens and at least 5
+    bytes of metadata a row or query (a topic's length and ``$`` flag; a
+    filter's also has its prefix and two flags, 10 bytes), and the bitmap
+    written once. ``warm``: the call repeats on the same inputs, as a graph
+    replay does. → :func:`_bound`."""
+    nbytes = (rows + b) * (lvl * 4 + 5) + b * rows // 8
+    return _bound(nbytes, row_test_work(b * rows, literal), warm)
 
 
 def dense_words_bound_ms(b: int, w: int, k: int):
-    """Least time for one dense words call (``match_words``) on a ``[b, w]``
-    bitmap with ``k`` slots a topic: the bitmap read once and ``word_idx``,
-    ``word_bits`` (``[b, k]`` each) and ``counts`` written once; ~2
-    operations a word (a popcount and a test). → as :func:`dense_bound_ms`."""
+    """Least time for one dense words call (``match_words``, and the topk
+    mode's ``compact_words``) on a ``[b, w]`` bitmap with ``k`` slots a
+    topic: the bitmap read once and ``word_idx``, ``word_bits`` (``[b, k]``
+    each) and ``counts`` written once; ~2 instructions a word (a popcount
+    and a test). → :func:`_bound`."""
     return _bound(b * w * 4 + b * (2 * k + 1) * 4, 2 * b * w)
 
 
@@ -198,9 +256,8 @@ def retained_work(tiles, fields, chunk_ids=None):
 
 def retained_bound_ms(tiles, fields, chunk_ids=None):
     """Least time for one retained-scan call: :func:`retained_work`'s bytes
-    over the memory rate, its operations over the FP32 and the integer
-    rates. → (bound ms, "bytes" or "operations", the bound with the
-    operations at the integer rate)."""
+    over the memory rate, its operations as instructions over the issue
+    rate. → :func:`_bound`."""
     return _bound(*retained_work(tiles, fields, chunk_ids))
 
 
@@ -232,9 +289,8 @@ def fused_tail_work(words, chunk_ids, cnts, budget: int):
 
 def fused_tail_bound_ms(words, chunk_ids, cnts, budget: int):
     """Least time for one fused-tail call: :func:`fused_tail_work`'s bytes
-    over the memory rate, its operations over the FP32 and the integer
-    rates. → (bound ms, "bytes" or "operations", the bound with the
-    operations at the integer rate)."""
+    over the memory rate, its operations as instructions over the issue
+    rate. → :func:`_bound`."""
     return _bound(*fused_tail_work(words, chunk_ids, cnts, budget))
 
 
@@ -251,6 +307,5 @@ def compact_global_work(words, cnts, budget: int):
 
 def compact_global_bound_ms(words, cnts, budget: int):
     """Least time for one ``compact_global`` call, as
-    :func:`fused_tail_bound_ms`. → (bound ms, "bytes" or "operations",
-    the bound with the operations at the integer rate)."""
+    :func:`fused_tail_bound_ms`. → :func:`_bound`."""
     return _bound(*compact_global_work(words, cnts, budget))

@@ -190,7 +190,7 @@ def time_pair(name: str, words, fids, cids, budget: int, plain: bool = True) -> 
         bound = fused_tail_bound_ms(words, cids, cnts, budget)
     else:
         bound = compact_global_bound_ms(words, cnts, budget)
-    r["bound_ms"], r["bound_by"], r["bound_int_ms"] = bound
+    r["bound_ms"], r["bound_by"], r["bound_term"] = bound
     r["library_ms"] = None  # no PyTorch call computes either wire
     return r
 
@@ -272,7 +272,7 @@ def run(matcher, topics, batch: int, log=print) -> dict:
     for s in stats.values():
         first = next(iter(s["shapes"].values()))
         s.update({k: first[k] for k in ("ms", "graph_ms", "plain_ms", "plain_graph_ms",
-                                        "bound_ms", "bound_by", "bound_int_ms",
+                                        "bound_ms", "bound_by", "bound_term",
                                         "library_ms", "shape", "budget")})
         s["bucket_graph_ms_per_batch"] = sum(
             r["graph_ms"] for k, r in s["shapes"].items() if k.startswith("bucket"))

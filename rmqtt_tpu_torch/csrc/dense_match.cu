@@ -1,16 +1,20 @@
 // Dense full-scan match kernels for Hopper (sm_90a): every topic of a batch
 // against every row of a FilterTable (the dense backend), the inverse,
 // every wildcard filter of a batch against every stored retained topic,
-// and the words path's compaction of the forward bitmap.
+// and the compaction of a words array to each topic's first nonzero words
+// (the dense words path's bitmap, the partitioned topk mode's match words).
 //
-// What they replace. Three XLA device programs of the JAX package (it wrote
-// no Pallas kernel for the dense backend):
+// What they replace. Four XLA device programs of the JAX package (it wrote
+// no Pallas kernel for them):
 //   - launch_dense_match_packed replaces rmqtt_tpu/ops/match.py:82
 //     match_packed_impl, whose row test is _chunk_match (:55-68);
 //   - launch_dense_match_retained replaces rmqtt_tpu/ops/match.py:176
 //     match_retained_impl;
 //   - launch_dense_match_words replaces the popcount and lax.top_k of
-//     rmqtt_tpu/ops/match.py:151 match_words_impl.
+//     rmqtt_tpu/ops/match.py:151 match_words_impl, and
+//     rmqtt_tpu/ops/partitioned.py:1492 compact_words_impl (the same
+//     function: its top_k over w - index on nonzero words puts the zero
+//     words after them, lowest index first).
 // Forward: rows are filters, ftok [F, L] int32 ('+' = PLUS_TOK, levels past
 // the filter PAD_TOK), flen, fprefix (levels before a trailing '#') int32,
 // fhash, fwild (first level '+' or '#') bool; the batch is topics, ttok
@@ -34,7 +38,9 @@
 // lowest-index zero words ascending (lax.top_k's order: the lower index
 // first among equal keys), word_bits[b, :K] those words.
 // The plain PyTorch twins are rmqtt_tpu_torch/ops/match.py
-// match_packed_plain, match_retained_plain and match_words_plain.
+// match_packed_plain and match_retained_plain, and
+// rmqtt_tpu_torch/ops/compact_tail.py match_words_plain (the words kernel's,
+// for the dense words path and the topk mode's compact_words alike).
 //
 // What bounds them on the H100. cfg3's dense table has F = 2^20 rows of
 // L = 8 levels (32 MiB of tokens, ~42 MiB with the metadata) and the batch
@@ -44,8 +50,12 @@
 // and the table is read once. So the forward kernel is bound by issue.
 // The words kernel reads that 2 GiB bitmap once and writes B * (2K + 1)
 // ints: bound by bytes, 0.646 ms. The inverse at cfg5's retained side
-// (2^20 rows, 64 filters) is 6.7e7 row tests, 1.5e9 operations, ~0.09 ms,
-// and writes 8 MiB.
+// (2^20 rows of 8 levels, 64 filters) reads ~39 MB, writes 8 MiB (0.0141 ms) and is
+// 6.7e7 row tests, each filter comparing its few literal levels (~1-3 in
+// the subscriber mix): bound by bytes, or by issue near it. The topk
+// mode's compaction reads [16,384, 128] words (8 MiB) and writes 4.3 MB:
+// bound by bytes, 0.0038 ms. (bench/roofline_model.py holds the bounds:
+// the bytes, cold or warm in the L2, and the instructions issued.)
 //
 // What the forward design does about it (dense_packed_kernel):
 //   - a thread holds a register tile of T topics (T = 8 at up to 8 levels,
@@ -75,6 +85,18 @@
 //     the warp: the warp tests one row);
 //   - a tile's 32 T x 8 words go out through shared memory, each topic's
 //     8 words as one 32-byte segment.
+// The inverse (dense_inverse_kernel) has few filters (1 to 64) and many
+// rows, so rows go on lanes: a lane holds R rows' LR tokens in registers
+// (R = 4 at up to 8 levels, 2 at 16, 1 past), loaded straight from global
+// memory in 16-byte loads, no staging, four warps a block (512 rows at up
+// to 8 levels); the block's filters go into shared
+// memory once as the forward's {multiplier, addend} pairs, two levels a
+// broadcast 16-byte load that serves 2 R tests; a filter's loop stops after
+// its last compared level (uniform over the block); one __ballot_sync a
+// filter and a row group is that filter's output word, and one lane
+// stores a warp's R words of a filter at once; the words of a block's
+// filters go out through shared memory, each filter's as one contiguous
+// segment, with the $ rule applied there, one LOP3 a word.
 // The words kernel (dense_words_kernel): a warp a topic, four 16-byte
 // loads a lane in flight (so W must be a multiple of 4 and the bitmap
 // 16-byte aligned, as the matcher's [B, capacity / 32] bitmap is); a stretch of all-zero words costs one vote; where
@@ -82,7 +104,11 @@
 // nonzero words, and a word of rank below K is written at that slot. Its
 // popcounts make counts. When the row has fewer than K nonzero words, a
 // second pass over the row's first words (at most K + nnz of them, from
-// L2) ranks the zero words and writes the first K - nnz after them.
+// L2) ranks the zero words and writes the first K - nnz after them. A row
+// of at most 128 words (the topk mode's W = 4 NC) takes
+// dense_words_small_kernel instead: the least power of two >= W / 4 lanes
+// a topic, one 16-byte load a lane, and the zero words placed from the
+// same registers and ranks, with no second pass.
 
 #include <climits>
 #include <cstdint>
@@ -95,7 +121,9 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int WORDS = 8;          // words a block covers, one warp each
 constexpr int ROWS = WORDS * 32;  // rows a block stages
 constexpr int THREADS = WORDS * 32;
-constexpr int GROUPS = 4;         // groups of 32 filters the inverse block walks
+constexpr int INV_WARPS = 4;      // warps an inverse block (bench/dense_variants.py)
+constexpr int INV_THREADS = INV_WARPS * 32;
+constexpr int INV_FILTERS = 128;  // filters an inverse block walks (grid.y over more)
 constexpr int OUT_STRIDE = WORDS + 1;
 constexpr int TILES = 16;         // topic tiles a forward block walks at most
 
@@ -218,82 +246,162 @@ dense_packed_kernel(const int* __restrict__ ftok, const int* __restrict__ flen,
   }
 }
 
-// Inverse: staged row tokens, metadata {rlen, rdollar}; the filter's
-// tokens and masks in registers.
-template <int LR>
-__global__ void __launch_bounds__(THREADS)
-dense_retained_kernel(const int* __restrict__ rtok, const int* __restrict__ rlen,
-                      const unsigned char* __restrict__ rdollar, int nrows,
-                      int lvl, const int* __restrict__ ftok,
-                      const int* __restrict__ flen,
-                      const int* __restrict__ fprefix,
-                      const unsigned char* __restrict__ fhash,
-                      const unsigned char* __restrict__ fwild, int b,
-                      int* __restrict__ out) {
-  extern __shared__ int4 smem[];
-  const int ls = lvl < LR ? lvl : LR;
-  int2* s_meta = reinterpret_cast<int2*>(smem);                // [ROWS]
-  int* s_tok = reinterpret_cast<int*>(s_meta + ROWS);          // [ROWS][ls]
-  unsigned* s_out = reinterpret_cast<unsigned*>(s_tok + ROWS * ls);  // [32][9]
-  const int row0 = blockIdx.x * ROWS;
-  const int rows_here = min(ROWS, nrows - row0);
-  const int nw = nrows >> 5;
-  const int w0 = blockIdx.x * WORDS;
-  for (int idx = threadIdx.x; idx < rows_here * ls; idx += THREADS) {
-    const int r = idx / ls, i = idx - r * ls;
-    s_tok[r * ls + i] = __ldg(rtok + (size_t)(row0 + r) * lvl + i);
-  }
-  for (int r = threadIdx.x; r < rows_here; r += THREADS)
-    s_meta[r] = make_int2(__ldg(rlen + row0 + r), (int)__ldg(rdollar + row0 + r));
-  __syncthreads();
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int g = 0; g < GROUPS; ++g) {
-    const int b0 = (blockIdx.y * GROUPS + g) * 32;
-    if (b0 >= b) break;  // uniform over the block
-    const int fb = b0 + lane;
-    unsigned word = 0;
-    if (fb < b && warp * 32 < rows_here) {
-      const int* ft = ftok + (size_t)fb * lvl;
-      const int fp = __ldg(fprefix + fb);
-      const int fl = __ldg(flen + fb);
-      const bool hh = __ldg(fhash + fb) != 0;
-      const bool fw = __ldg(fwild + fb) != 0;
-      int t[LR], msk[LR];
+// Inverse: rows on lanes. Lane l of warp v holds rows 32 (v R + j) + l,
+// j < R, each with its LR tokens in registers (one word j of the output a
+// lane's j-th row), loaded from global memory in 16-byte loads where the
+// table allows it. The block's filters (INV_FILTERS at most, grid.y over
+// more) sit in shared memory: s_lv [F][LR / 2] {multiplier, addend} for
+// two levels, {1, -token} where the level compares and {0, 0} where it
+// passes ('+', past the prefix, past L); s_meta [F] {level pairs up to the
+// last compared level, -lo, length mask, wildcard-first ? ~0 : 0}; s_out
+// [F][WPB] the words before the $ rule; s_pre [F] fprefix (levels past
+// LR); s_dol [WPB] the block's $-topic rows, a word each.
+// A warp's R words of one filter, by one lane, in 16- or 8-byte stores.
+template <int R>
+__device__ __forceinline__ void store_words(unsigned* p, const unsigned (&w)[R]) {
+  if constexpr (R % 4 == 0) {
 #pragma unroll
-      for (int i = 0; i < LR; ++i) {
-        t[i] = i < ls ? __ldg(ft + i) : 0;
-        msk[i] = (i >= fp || t[i] == PLUS_TOK) ? 0 : -1;
-      }
-      for (int k = 0; k < 32; ++k) {
-        const int r = warp * 32 + k;
-        const int* rt = s_tok + r * ls;
-        unsigned acc = 0;
+    for (int k = 0; k < R; k += 4)
+      *reinterpret_cast<uint4*>(p + k) = make_uint4(w[k], w[k + 1], w[k + 2], w[k + 3]);
+  } else if constexpr (R == 2) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+  } else {
 #pragma unroll
-        for (int i = 0; i < LR; ++i) {
-          if (i < ls) acc |= (unsigned)((rt[i] ^ t[i]) & msk[i]);
-        }
-        for (int i = LR; i < lvl; ++i) {  // levels past the staged ones
-          const int f = __ldg(ft + i);
-          if (i < fp && f != PLUS_TOK)
-            acc |= (unsigned)(f ^ __ldg(rtok + (size_t)(row0 + r) * lvl + i));
-        }
-        const int2 m = s_meta[r];
-        const bool len_ok = hh ? m.x >= fp : m.x == fl;
-        const bool hit = acc == 0 && len_ok && !(m.y && fw);
-        word |= (unsigned)hit << k;
-      }
-    }
-    s_out[lane * OUT_STRIDE + warp] = word;
-    __syncthreads();
-    const int ot = threadIdx.x / WORDS, ow = threadIdx.x % WORDS;
-    if (b0 + ot < b && w0 + ow < nw)
-      out[(size_t)(b0 + ot) * nw + w0 + ow] = (int)s_out[ot * OUT_STRIDE + ow];
-    __syncthreads();
+    for (int k = 0; k < R; ++k) p[k] = w[k];
   }
 }
 
-// Levels staged in shared memory: all of them up to 32 (LR >= L), else 32.
-inline int staged_levels(int lvl) { return lvl < 32 ? lvl : 32; }
+template <int LR, int R>
+__global__ void __launch_bounds__(INV_THREADS)
+dense_inverse_kernel(const int* __restrict__ rtok, const int* __restrict__ rlen,
+                     const unsigned char* __restrict__ rdollar, int nrows, int lvl,
+                     int vec, const int* __restrict__ ftok, const int* __restrict__ flen,
+                     const int* __restrict__ fprefix,
+                     const unsigned char* __restrict__ fhash,
+                     const unsigned char* __restrict__ fwild, int b,
+                     int* __restrict__ out) {
+  constexpr int WPB = INV_WARPS * R;  // words (of 32 rows) a block covers
+  extern __shared__ int4 smem[];
+  const int cap = min(INV_FILTERS, b);
+  int4* s_lv = smem;
+  int4* s_meta = s_lv + cap * (LR / 2);
+  unsigned* s_out = reinterpret_cast<unsigned*>(s_meta + cap);  // 16-byte aligned
+  int* s_pre = reinterpret_cast<int*>(s_out + cap * WPB);
+  unsigned* s_dol = reinterpret_cast<unsigned*>(s_pre + cap);
+  const int b0 = blockIdx.y * INV_FILTERS;
+  const int nf = min(INV_FILTERS, b - b0);
+  for (int f = threadIdx.x; f < nf; f += INV_THREADS) {
+    const int fb = b0 + f;
+    const int fp = __ldg(fprefix + fb);
+    const bool hh = __ldg(fhash + fb) != 0;
+    const int lo = hh ? fp : __ldg(flen + fb);
+    const int* ft = ftok + (size_t)fb * lvl;
+    int last = 0;  // levels up to the last one that compares
+    const auto level = [&](int i, int& mul, int& add) {
+      mul = add = 0;
+      if (i < lvl && i < fp) {
+        const int t = __ldg(ft + i);
+        if (t != PLUS_TOK) {
+          mul = 1;
+          add = (int)(0u - (unsigned)t);
+          last = i + 1;
+        }
+      }
+    };
+    for (int q = 0; q < LR / 2; ++q) {
+      int4 v;
+      level(2 * q, v.x, v.y);
+      level(2 * q + 1, v.z, v.w);
+      s_lv[f * (LR / 2) + q] = v;
+    }
+    s_meta[f] = make_int4((last + 1) / 2, (int)(0u - (unsigned)lo), hh ? INT_MIN : -1,
+                          __ldg(fwild + fb) ? -1 : 0);
+    s_pre[f] = fp;
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = nrows >> 5;
+  const int w0 = blockIdx.x * WPB + warp * R;  // this warp's first word
+  unsigned t[R][LR], rl[R];
+  bool dollar[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) {  // every load is in flight before one is used
+    const bool here = w0 + j < nw;  // uniform over the warp
+    const size_t r = (size_t)(w0 + j) * 32 + lane;
+#pragma unroll
+    for (int i = 0; i < LR; ++i) t[j][i] = 0;
+    rl[j] = 0xffffffffu;  // a free row's length: matches nothing
+    dollar[j] = false;
+    if (here) {
+      const int* rr = rtok + r * lvl;
+      if (vec) {  // lvl % 4 == 0 and rtok 16-byte aligned
+#pragma unroll
+        for (int q = 0; q < LR / 4; ++q) {
+          if (4 * q < lvl) {
+            const int4 v = __ldg(reinterpret_cast<const int4*>(rr) + q);
+            t[j][4 * q] = (unsigned)v.x;
+            t[j][4 * q + 1] = (unsigned)v.y;
+            t[j][4 * q + 2] = (unsigned)v.z;
+            t[j][4 * q + 3] = (unsigned)v.w;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < LR; ++i)
+          if (i < lvl) t[j][i] = (unsigned)__ldg(rr + i);
+      }
+      rl[j] = (unsigned)__ldg(rlen + r);
+      dollar[j] = __ldg(rdollar + r) != 0;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const unsigned dol = __ballot_sync(FULL, dollar[j]);
+    if (lane == 0) s_dol[warp * R + j] = dol;
+  }
+  __syncthreads();
+  for (int f = 0; f < nf; ++f) {
+    const int4 m = s_meta[f];  // a broadcast: one filter for the whole block
+    unsigned acc[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) acc[j] = (rl[j] + (unsigned)m.y) & (unsigned)m.z;
+    const int4* lv = s_lv + f * (LR / 2);
+#pragma unroll
+    for (int q = 0; q < LR / 2; ++q) {
+      if (q >= m.x) break;  // uniform: the levels after the last compared one pass
+      const int4 v = lv[q];
+#pragma unroll
+      for (int j = 0; j < R; ++j)
+        acc[j] |= (t[j][2 * q] * (unsigned)v.x + (unsigned)v.y) |
+                  (t[j][2 * q + 1] * (unsigned)v.z + (unsigned)v.w);
+    }
+    if (LR == 32 && lvl > LR) {
+      const int p = s_pre[f];
+      if (p > LR) {  // uniform: only a filter whose prefix reaches past LR
+        const int* ft = ftok + (size_t)(b0 + f) * lvl;
+        for (int i = LR; i < min(lvl, p); ++i) {
+          const int tok = __ldg(ft + i);
+          if (tok == PLUS_TOK) continue;
+#pragma unroll
+          for (int j = 0; j < R; ++j) {
+            if (w0 + j < nw)
+              acc[j] |= (unsigned)(__ldg(rtok + ((size_t)(w0 + j) * 32 + lane) * lvl + i) ^ tok);
+          }
+        }
+      }
+    }
+    unsigned word[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) word[j] = __ballot_sync(FULL, acc[j] == 0u);
+    if (lane == 0) store_words<R>(s_out + f * WPB + warp * R, word);
+  }
+  __syncthreads();
+  const int wb = blockIdx.x * WPB;
+  for (int idx = threadIdx.x; idx < nf * WPB; idx += INV_THREADS) {
+    const int f = idx / WPB, k = idx % WPB;  // the $ rule: a $ row fails a wildcard-first filter
+    if (wb + k < nw)
+      out[(size_t)(b0 + f) * nw + wb + k] = (int)(s_out[idx] & ~(s_dol[k] & s_meta[f].w));
+  }
+}
 
 template <typename Kernel, typename... Args>
 int launch_grid(Kernel kernel, dim3 grid, int threads, size_t smem, cudaStream_t s,
@@ -307,21 +415,23 @@ int launch_grid(Kernel kernel, dim3 grid, int threads, size_t smem, cudaStream_t
   return (int)cudaGetLastError();
 }
 
-// The inverse kernel's grid: a block for each 256 rows and 128 filters.
-template <typename Kernel, typename... Args>
-int launch(Kernel kernel, size_t smem, int nrows, int b, cudaStream_t s,
-           Args... args) {
-  const dim3 grid((nrows + ROWS - 1) / ROWS, (b + 32 * GROUPS - 1) / (32 * GROUPS));
-  return launch_grid(kernel, grid, THREADS, smem, s, args...);
+// The inverse at LR levels in registers and R rows a lane: a block of
+// INV_WARPS warps covers 32 INV_WARPS R rows and INV_FILTERS filters.
+template <int LR, int R>
+int launch_inverse(const int* rtok, const int* rlen, const unsigned char* rdollar,
+                   int nrows, int lvl, const int* ftok, const int* flen, const int* fprefix,
+                   const unsigned char* fhash, const unsigned char* fwild, int b, int* out,
+                   cudaStream_t s) {
+  const int rows = 32 * INV_WARPS * R;
+  const dim3 grid((nrows + rows - 1) / rows, (b + INV_FILTERS - 1) / INV_FILTERS);
+  const int cap = b < INV_FILTERS ? b : INV_FILTERS;
+  const size_t smem = (size_t)cap * ((LR / 2) * sizeof(int4) + sizeof(int4) + sizeof(int) +
+                                     INV_WARPS * R * sizeof(unsigned)) +
+                      INV_WARPS * R * sizeof(unsigned);
+  const int vec = lvl % 4 == 0 && reinterpret_cast<uintptr_t>(rtok) % 16 == 0;
+  return launch_grid(dense_inverse_kernel<LR, R>, grid, INV_THREADS, smem, s, rtok, rlen,
+                     rdollar, nrows, lvl, vec, ftok, flen, fprefix, fhash, fwild, b, out);
 }
-
-int check(int nrows, int lvl, int b) {
-  if (nrows <= 0 || b <= 0) return -1;  // nothing to do
-  if (lvl < 1 || nrows % 32 != 0 || (b + 32 * GROUPS - 1) / (32 * GROUPS) > 65535)
-    return (int)cudaErrorInvalidValue;
-  return 0;
-}
-
 
 // Words. A warp a topic; WW_UNROLL 16-byte loads (4 words each) a lane in
 // flight, lane l holding words 4l..4l+3 of each 128-word stretch.
@@ -431,6 +541,54 @@ dense_words_kernel(const unsigned* __restrict__ packed, int w, int b, int k,
   }
 }
 
+// Words of a row of at most 128 (the partitioned matcher's topk mode, W =
+// 4 NC): 2^glog lanes a topic (the least power of two >= W / 4), 32 >> glog
+// topics a warp, each lane's four words in one 16-byte load. The ballots
+// rank the nonzero words within each topic's lanes, and the same ranks
+// place the zero words: the whole row is in registers, so there is no
+// second pass.
+__global__ void __launch_bounds__(WW_WARPS * 32)
+dense_words_small_kernel(const unsigned* __restrict__ packed, int w, int b, int k,
+                         int glog, int* __restrict__ word_idx, int* __restrict__ word_bits,
+                         int* __restrict__ counts) {
+  const int lane = threadIdx.x & 31;
+  const int g = 1 << glog;
+  const int gl = lane & (g - 1);  // this lane's place among its topic's lanes
+  const unsigned group = (g == 32 ? FULL : (1u << g) - 1u) << (lane - gl);
+  const unsigned below = (1u << lane) - 1u;
+  const int tb = (blockIdx.x * WW_WARPS * 32 + threadIdx.x) >> glog;
+  const bool here = tb < b;  // every lane takes part in the votes
+  unsigned v[4];
+  const int i0 = 4 * gl;
+  load4(packed + (size_t)(here ? tb : 0) * w, here ? w : 0, i0, v);
+  const unsigned nz = nonzero4(v);
+  int before = 0, nnz = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const unsigned bj = __ballot_sync(FULL, (nz >> j) & 1u) & group;
+    before += __popc(bj & below);
+    nnz += __popc(bj);
+  }
+  unsigned bits = __popc(v[0]) + __popc(v[1]) + __popc(v[2]) + __popc(v[3]);
+  for (int o = g >> 1; o > 0; o >>= 1) bits += __shfl_xor_sync(FULL, bits, o);
+  if (!here) return;
+  if (gl == 0) counts[tb] = (int)bits;
+  if (i0 >= w) return;
+  int* oi = word_idx + (size_t)tb * k;
+  int* ob = word_bits + (size_t)tb * k;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int r = before + __popc(nz & ((1u << j) - 1u));  // nonzero words before word i0 + j
+    // a nonzero word goes to its rank; the zero word with z zero words
+    // before it goes to nnz + z
+    const int slot = (nz >> j) & 1u ? r : nnz + (i0 + j - r);
+    if (slot < k) {
+      oi[slot] = i0 + j;
+      ob[slot] = (int)v[j];
+    }
+  }
+}
+
 template <int LR, int T>
 int launch_forward(const int* ftok, const int* flen, const int* fprefix,
                    const unsigned char* fhash, const unsigned char* fwild, int nrows,
@@ -491,16 +649,14 @@ extern "C" int launch_dense_match_retained(const int* rtok, const int* rlen,
                                            const unsigned char* fhash,
                                            const unsigned char* fwild, int b,
                                            int* out, void* stream) {
-  const int c = check(nrows, lvl, b);
-  if (c) return c < 0 ? 0 : c;
+  if (nrows <= 0 || b <= 0) return 0;  // nothing to do
+  if (lvl < 1 || nrows % 32 != 0 || (b + INV_FILTERS - 1) / INV_FILTERS > 65535)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int ls = staged_levels(lvl);
-  const size_t smem = ROWS * sizeof(int2) + (size_t)ROWS * ls * sizeof(int) +
-                      32 * OUT_STRIDE * sizeof(unsigned);
-#define DENSE_RETAINED_ARGS rtok, rlen, rdollar, nrows, lvl, ftok, flen, fprefix, fhash, fwild, b, out
-  if (lvl <= 8) return launch(dense_retained_kernel<8>, smem, nrows, b, s, DENSE_RETAINED_ARGS);
-  if (lvl <= 16) return launch(dense_retained_kernel<16>, smem, nrows, b, s, DENSE_RETAINED_ARGS);
-  return launch(dense_retained_kernel<32>, smem, nrows, b, s, DENSE_RETAINED_ARGS);
+#define DENSE_RETAINED_ARGS rtok, rlen, rdollar, nrows, lvl, ftok, flen, fprefix, fhash, fwild, b, out, s
+  if (lvl <= 8) return launch_inverse<8, 4>(DENSE_RETAINED_ARGS);
+  if (lvl <= 16) return launch_inverse<16, 2>(DENSE_RETAINED_ARGS);
+  return launch_inverse<32, 1>(DENSE_RETAINED_ARGS);
 #undef DENSE_RETAINED_ARGS
 }
 
@@ -512,8 +668,16 @@ extern "C" int launch_dense_match_words(const int* packed, int w, int b, int k,
       k > w)
     return (int)cudaErrorInvalidValue;  // the kernel reads 16-byte aligned words
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned* words = reinterpret_cast<const unsigned*>(packed);
+  if (w <= 128) {  // one 16-byte load a lane holds the row
+    int glog = 0;
+    while ((4 << glog) < w) ++glog;
+    const long long threads = (long long)b << glog;
+    const dim3 grid((unsigned)((threads + WW_WARPS * 32 - 1) / (WW_WARPS * 32)));
+    return launch_grid(dense_words_small_kernel, grid, WW_WARPS * 32, 0, s, words, w, b, k,
+                       glog, word_idx, word_bits, counts);
+  }
   const dim3 grid((b + WW_WARPS - 1) / WW_WARPS);
-  return launch_grid(dense_words_kernel, grid, WW_WARPS * 32, 0, s,
-                     reinterpret_cast<const unsigned*>(packed), w, b, k, word_idx, word_bits,
-                     counts);
+  return launch_grid(dense_words_kernel, grid, WW_WARPS * 32, 0, s, words, w, b, k, word_idx,
+                     word_bits, counts);
 }

@@ -1,9 +1,10 @@
 """The partitioned match's compaction tails: the CUDA kernels' wrappers and
 their plain twins.
 
-Both read the match words ``[B, W]`` int32 (``W = NC*4`` uint32 words a
+Each reads the match words ``[B, W]`` int32 (``W = NC*4`` uint32 words a
 topic; bit ``i`` of word ``w`` is row ``(w%4)*32 + i`` of the topic's
-candidate chunk ``w//4``) and write one wire ``[budget + B]``: the first
+candidate chunk ``w//4``). The two global tails write one wire
+``[budget + B]``: the first
 ``budget`` routes in flat (topic, word, bit) order, zeros in the slots
 they leave unfilled, then each topic's route count (its words' popcount,
 whatever the budget, so ``counts.sum() > budget`` signals overflow).
@@ -20,6 +21,15 @@ whatever the budget, so ``counts.sum() > budget`` signals overflow).
   while ``W*32 < 0x10000`` (int16 holding uint16 values), else int32.
   Kernel: ``launch_compact_global``, in place of ``compact_global_impl``.
   Plain twin: :func:`compact_global_plain`.
+- :func:`compact_words` — the topk mode's tail: each topic's first
+  ``K = min(max_words, W)`` nonzero word indices ascending, then its
+  lowest-index zero words, those words and its route count, as one int32
+  wire ``[word_idx..., word_bits..., counts...]``.
+  Kernel: ``csrc/dense_match.cu`` ``launch_dense_match_words`` (the dense
+  words path's kernel computes the same function), writing the wire's
+  three slices in place, in place of ``compact_words_impl``. Plain twin:
+  :func:`match_words_plain` (as a wire, :func:`topk_wire_plain`), which is
+  also the twin of the dense backend's ``match_words`` on the same kernel.
 
 A wrapper given CPU tensors runs its plain twin; given CUDA tensors it
 launches its kernel or raises — it never falls back. Each wrapper counts
@@ -136,6 +146,36 @@ def compact_global_plain(words: torch.Tensor, budget: int) -> torch.Tensor:
     return wire.to(torch.int16 if w * 32 < 0x10000 else torch.int32)
 
 
+def match_words_plain(words: torch.Tensor, max_words: int):
+    """Match words (or the dense backend's bitmap) → each topic's first
+    words in torch ops (twin of the JAX ``compact_words_impl`` and
+    ``match_words_impl``'s popcount and ``lax.top_k``, and of the words
+    kernel): ``(word_idx [B, K], word_bits [B, K], counts [B])`` int32 with
+    ``K = min(max_words, W)``: each topic's first ``min(K, nnz)`` nonzero
+    word indices ascending, then its lowest-index zero words ascending
+    (``lax.top_k`` puts the lower index first among equal keys), their bits
+    (the uint32 words) and the exact match counts (``_popcount32``). The
+    keys are unique — a nonzero word ``2W - idx``, a zero word ``W - idx`` —
+    so ``torch.topk`` has no ties to order and gives JAX's indices exactly
+    (int32 keys: W < 2^30, a row of 2^35 filters). A topic has more than
+    ``max_words`` nonzero words only if it has more than ``max_words``
+    matches, so ``counts > max_words`` is the exact overflow signal."""
+    b, w = words.shape
+    k = min(max_words, w)
+    counts = _popcount32(words).sum(dim=1).to(torch.int32)
+    idx = torch.arange(w, dtype=torch.int32, device=words.device)
+    key = torch.where(words != 0, 2 * w - idx, w - idx)
+    word_idx = torch.topk(key, k, dim=1).indices
+    return word_idx.to(torch.int32), torch.gather(words, 1, word_idx), counts
+
+
+def topk_wire_plain(words: torch.Tensor, max_words: int) -> torch.Tensor:
+    """:func:`match_words_plain`'s three arrays as one int32 wire
+    ``[word_idx..., word_bits..., counts...]``."""
+    wi, wb, cn = match_words_plain(words, max_words)
+    return torch.cat([wi.reshape(-1), wb.reshape(-1), cn])
+
+
 def _check_cuda(name: str, words: torch.Tensor, budget: int, **others) -> None:
     dev = words.device
     for arg, t in (("words", words), *others.items()):
@@ -246,3 +286,69 @@ def compact_global(words: torch.Tensor, budget: int) -> torch.Tensor:
 
 
 compact_global.launches = 0
+
+
+def launch_words(lib, words: torch.Tensor, k: int, name: str = "compact_words"
+                 ) -> torch.Tensor:
+    """One call of ``lib``'s ``launch_dense_match_words`` on checked words
+    (``k <= W``), writing ``word_idx``, ``word_bits`` and ``counts`` into the
+    slices of one ``[2*B*k + B]`` int32 wire; counts nothing. As
+    :func:`launch_fused`, a benchmark may pass another build of the
+    source."""
+    b, w = words.shape
+    dev = words.device
+    out = torch.empty(2 * b * k + b, dtype=torch.int32, device=dev)
+    ptr, step = out.data_ptr(), b * k * 4
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.launch_dense_match_words(words.data_ptr(), w, b, k, ptr, ptr + step,
+                                           ptr + 2 * step, stream)
+    _raise_on(err, name)
+    return out
+
+
+def split_topk_wire(wire: torch.Tensor, b: int, k: int):
+    """A topk wire → its ``(word_idx [B, k], word_bits [B, k], counts [B])``
+    views."""
+    return (wire[:b * k].view(b, k), wire[b * k:2 * b * k].view(b, k), wire[2 * b * k:])
+
+
+def words_wire(wrapper, words: torch.Tensor, max_words: int) -> torch.Tensor:
+    """The words kernel's wire for ``wrapper`` (:func:`compact_words`, or the
+    dense backend's ``match_words``), which names the errors and counts the
+    launch: CUDA words only. The kernel reads four words a load, so W must
+    be a multiple of 4 and the start 16-byte aligned (``words_any``'s ``[B,
+    NC*4]`` output and the dense bitmap are)."""
+    name = wrapper.__name__
+    if words.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {words.device}")
+    _check_cuda(name, words, 0)
+    b, w = words.shape
+    if w % 4 or words.data_ptr() % 16:
+        raise ValueError(f"{name}: words need W % 4 == 0 (W = {w}) and a 16-byte "
+                         "aligned start")
+    if max_words < 0:
+        raise ValueError(f"{name}: max_words {max_words} is negative")
+    k = min(max_words, w)
+    if b == 0:
+        return torch.empty(0, dtype=torch.int32, device=words.device)
+    from rmqtt_tpu_torch.ops._build import kernel_library
+
+    out = launch_words(kernel_library().lib, words, k, name)
+    wrapper.launches += 1
+    return out
+
+
+def compact_words(words: torch.Tensor, max_words: int) -> torch.Tensor:
+    """:func:`match_words_plain`'s ``(word_idx, word_bits, counts)`` as the
+    one int32 wire ``[word_idx..., word_bits..., counts...]`` that a topk
+    batch fetches (:func:`split_topk_wire` gives the three back). A
+    contiguous int32 CUDA tensor launches the words kernel
+    (:func:`words_wire`), which writes the three slices in place; CPU
+    tensors run the plain twin (:func:`topk_wire_plain`)."""
+    if words.device.type == "cpu":
+        return topk_wire_plain(words, max_words)
+    return words_wire(compact_words, words, max_words)
+
+
+compact_words.launches = 0

@@ -31,7 +31,8 @@ package's uint32 words, bit for bit).
 - :func:`match_words` — the words path's compaction of the bitmap: each
   topic's first nonzero words, their bits and its match count. Kernel:
   ``launch_dense_match_words``, replacing ``match_words_impl``'s popcount
-  and ``lax.top_k``. Plain twin: :func:`match_words_plain`.
+  and ``lax.top_k``; :func:`match_words_wire` gives the three as one wire.
+  Plain twin: :func:`match_words_plain`.
 - :func:`match_compact` — torch ops over the kernel's bitmap
   (``match_compact_impl``), on no main path.
 
@@ -50,9 +51,10 @@ import numpy as np
 import torch
 
 from rmqtt_tpu_torch.ops._build import KernelError
+from rmqtt_tpu_torch.ops.compact_tail import (match_words_plain, split_topk_wire,
+                                              topk_wire_plain, words_wire)
 from rmqtt_tpu_torch.ops.encode import PLUS_TOK, FilterTable
-from rmqtt_tpu_torch.ops.partitioned import (_FP_UPLOAD, _popcount32, resolve_device,
-                                             to_device)
+from rmqtt_tpu_torch.ops.partitioned import _FP_UPLOAD, resolve_device, to_device
 from rmqtt_tpu_torch.utils.devfetch import fetch
 
 # Filters a compact-mode step unpacks (the JAX scan's chunk).
@@ -286,66 +288,29 @@ def match_compact(packed: torch.Tensor, chunk: int, max_matches: int):
     return out[:, :max_matches], counts
 
 
-def match_words_plain(packed: torch.Tensor, max_words: int):
-    """Sparse output from a bitmap in torch ops (twin of the JAX
-    ``match_words_impl``'s popcount and ``lax.top_k``, and of the words
-    kernel): ``(word_idx [B, K], word_bits [B, K], counts [B])`` int32 with
-    ``K = min(max_words, W)``: each topic's first ``min(K, nnz)`` nonzero
-    word indices ascending, then its lowest-index zero words ascending
-    (``lax.top_k`` puts the lower index first among equal keys), their bits
-    and the exact match counts (``_popcount32``). The keys are unique — a
-    nonzero word ``2W - idx``, a zero word ``W - idx`` — so ``torch.topk``
-    has no ties to order and gives JAX's indices exactly (int32 keys: W <
-    2^30, a row of 2^35 filters). A topic has more than ``max_words``
-    nonzero words only if it has more than ``max_words`` matches, so
-    ``counts > max_words`` is the exact overflow signal for the bitmap
-    fallback."""
-    b, w = packed.shape
-    k = min(max_words, w)
-    counts = _popcount32(packed).sum(dim=1).to(torch.int32)
-    idx = torch.arange(w, dtype=torch.int32, device=packed.device)
-    key = torch.where(packed != 0, 2 * w - idx, w - idx)
-    word_idx = torch.topk(key, k, dim=1).indices
-    return word_idx.to(torch.int32), torch.gather(packed, 1, word_idx), counts
-
-
 def match_words(packed: torch.Tensor, max_words: int):
     """:func:`match_words_plain`'s output from a ``[B, W]`` int32 bitmap.
     A contiguous CUDA tensor launches the words kernel
     (``launch_dense_match_words``: one pass over each topic's row, in
     16-byte loads, so W must be a multiple of 4 and the tensor 16-byte
-    aligned, as :class:`DenseMatcher`'s bitmap is); a CPU tensor runs the
+    aligned, as :class:`DenseMatcher`'s bitmap is), whose three outputs are
+    views of one wire (``compact_tail.words_wire``); a CPU tensor runs the
     plain twin."""
-    dev = packed.device
-    if dev.type == "cpu":
+    if packed.device.type == "cpu":
         return match_words_plain(packed, max_words)
-    if dev.type != "cuda":
-        raise ValueError(f"match_words: unsupported device {dev}")
-    if packed.dim() != 2:
-        raise ValueError(f"match_words: packed {tuple(packed.shape)} is not [B, W]")
-    if packed.dtype != torch.int32:
-        raise TypeError(f"match_words: packed dtype {packed.dtype}, expected torch.int32")
-    if not packed.is_contiguous():
-        raise ValueError("match_words: packed must be contiguous")
+    wire = match_words_wire(packed, max_words)
     b, w = packed.shape
-    if w % 4 or packed.data_ptr() % 16:
-        raise ValueError(f"match_words: packed needs W % 4 == 0 (W = {w}) and a "
-                         "16-byte aligned start")
-    k = min(max_words, w)
-    if k < 0:
-        raise ValueError(f"match_words: max_words {max_words} is negative")
-    word_idx = torch.empty((b, k), dtype=torch.int32, device=dev)
-    word_bits = torch.empty((b, k), dtype=torch.int32, device=dev)
-    counts = torch.empty((b,), dtype=torch.int32, device=dev)
-    if b == 0:
-        return word_idx, word_bits, counts
-    from rmqtt_tpu_torch.ops._build import kernel_library
+    return split_topk_wire(wire, b, min(max_words, w))
 
-    _launch("match_words", kernel_library().lib.launch_dense_match_words, dev,
-            packed.data_ptr(), w, b, k, word_idx.data_ptr(), word_bits.data_ptr(),
-            counts.data_ptr())
-    match_words.launches += 1
-    return word_idx, word_bits, counts
+
+def match_words_wire(packed: torch.Tensor, max_words: int) -> torch.Tensor:
+    """:func:`match_words`'s three outputs as the one int32 wire
+    ``[word_idx..., word_bits..., counts...]`` that the words path fetches:
+    on the card the kernel writes it in place (a launch of
+    :func:`match_words`); a CPU tensor runs the twin's ``topk_wire_plain``."""
+    if packed.device.type == "cpu":
+        return topk_wire_plain(packed, max_words)
+    return words_wire(match_words, packed, max_words)
 
 
 match_words.launches = 0
@@ -511,8 +476,7 @@ class DenseMatcher:
         if padded * (self.table.capacity // 8) <= COMPACT_BITMAP_BYTES:
             packed = fetch(self.match_encoded(ttok, tlen, tdollar), "dense bitmap fetch")
             return unpack_bitmap(packed[:b], nrows=self.table.capacity)
-        wire = torch.cat([t.reshape(-1) for t in match_words(
-            self.match_encoded(ttok, tlen, tdollar), self.max_matches)])
+        wire = match_words_wire(self.match_encoded(ttok, tlen, tdollar), self.max_matches)
         arr = fetch(wire, "dense words fetch")
         k = (arr.size - padded) // (2 * padded)
         word_idx = arr[:padded * k].reshape(padded, k)

@@ -13,8 +13,8 @@ Its device half runs on torch tensors:
 1. the words producer — the hand-written CUDA kernels of
    ``ops/match_words.py`` (packed or legacy tiles) — tests every topic's
    candidate chunks and packs 32 row results per word;
-2. a compaction of the words, by mode — hand-written CUDA kernels of
-   ``ops/compact_tail.py`` for the global modes: ``fused_compact_decode``
+2. a compaction of the words, by mode — hand-written CUDA kernels behind
+   the wrappers of ``ops/compact_tail.py``: ``fused_compact_decode``
    (the default) compacts the nonzero words and set bits of the whole batch
    into one slot budget, resolves each matched row to its filter id
    through the device-resident row→fid map and sorts by (topic, fid), so
@@ -61,9 +61,9 @@ from rmqtt_tpu_torch.ops.encode import (
     group_byte_planes,
 )
 from rmqtt_tpu_torch.ops.compact_tail import (_popcount32, compact_global,
-                                              compact_global_plain,
+                                              compact_global_plain, compact_words,
                                               fused_compact_decode,
-                                              fused_compact_decode_plain)
+                                              fused_compact_decode_plain, topk_wire_plain)
 # CHUNK = 128 rows per tile (4 words): the JAX package's constant; some of
 # its docstrings say 256, which is wrong
 from rmqtt_tpu_torch.ops.match_words import CHUNK, WORDS_PER_CHUNK, words_any
@@ -1273,28 +1273,12 @@ def match_global_split(tiles, parts, budgets, layout=None, use_kernel: bool = Tr
     return _cat_wires([o.wire for o in outs]), outs
 
 
-def compact_words(words: torch.Tensor, max_words: int):
-    """Match words → per-topic topk compaction (twin of the JAX
-    ``compact_words_impl``): → ``(word_idx, word_bits, counts)``, the
-    first ``kw = min(max_words, w)`` nonzero words of each topic in word
-    order, then its zero words lowest index first (JAX's ``lax.top_k`` over
-    ``w - index`` on nonzero words; ``torch.topk`` promises no order among
-    ties, a stable descending sort does), and each topic's set bits.
-    int32 tensors; ``word_bits`` holds the uint32 words."""
-    b, w = words.shape
-    kw = min(max_words, w)
-    counts = _popcount32(words).sum(dim=1).to(torch.int32)
-    rank = w - torch.arange(w, dtype=torch.int32, device=words.device)
-    val = torch.where(words != 0, rank, 0)
-    word_idx = torch.sort(val, dim=1, descending=True, stable=True).indices[:, :kw]
-    return word_idx.to(torch.int32), torch.gather(words, 1, word_idx), counts
-
-
-def _topk_wire(words: torch.Tensor, max_words: int) -> torch.Tensor:
+def _topk_wire(words: torch.Tensor, max_words: int, use_kernel: bool = True) -> torch.Tensor:
     """``compact_words`` as one int32 wire ``[word_idx..., word_bits...,
-    counts...]``, so a topk batch costs one fetch (JAX fetches three)."""
-    wi, wb, cn = compact_words(words, max_words)
-    return torch.cat([wi.reshape(-1), wb.reshape(-1), cn])
+    counts...]``, so a topk batch costs one fetch (JAX fetches three): on
+    the card one kernel launch writes the three slices in place;
+    ``use_kernel`` False runs the plain twin."""
+    return (compact_words if use_kernel else topk_wire_plain)(words, max_words)
 
 
 def match_partitioned(tiles, ttok, tlen, tdollar, chunk_ids, max_words: int,
@@ -1304,7 +1288,7 @@ def match_partitioned(tiles, ttok, tlen, tdollar, chunk_ids, max_words: int,
     ``match_partitioned_impl``), as one wire (``_topk_wire``)."""
     words = words_any(tiles, ttok, tlen, tdollar, chunk_ids, layout=layout,
                       use_kernel=use_kernel)
-    return Unfused(_topk_wire(words, max_words), words)
+    return Unfused(_topk_wire(words, max_words, use_kernel), words)
 
 
 def pack_device_rows(t: PartitionedTable) -> np.ndarray:
@@ -2340,8 +2324,8 @@ class PartitionedMatcher:
             kw = 1 << (mx - 1).bit_length()
             self.max_words = max(self.max_words, kw)
             out = out._replace(wire=(
-                _pj("compact_words", _topk_wire, out.words, kw)
-                if _DEVPROF.enabled else _topk_wire(out.words, kw)))
+                _pj("compact_words", _topk_wire, out.words, kw, self.use_kernel)
+                if _DEVPROF.enabled else _topk_wire(out.words, kw, self.use_kernel)))
         wi = arr[: bp * k].reshape(bp, k)
         wb = arr[bp * k : 2 * bp * k].view(np.uint32).reshape(bp, k)
         return self._decode_revalidated(

@@ -439,6 +439,102 @@ def test_match_words_raises_when_the_library_fails(cuda, monkeypatch):
     assert DM.match_words.launches == n0
 
 
+def _random_words(rng, b, w, density):
+    """``[b, w]`` int32 words: every bit pattern, ``density`` of them
+    nonzero, an all-zero first topic and a second with ``w / 2`` nonzero
+    words."""
+    vals = rng.integers(-2**31, 2**31, size=(b, w), dtype=np.int64)
+    vals[vals == 0] = 1
+    bits = np.where(rng.random((b, w)) < density, vals, 0).astype(np.int32)
+    bits[0] = 0
+    if b > 1:
+        bits[1, :w // 2] = -1
+    return bits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,w,density", [
+    (70, 4, 0.3), (33, 8, 0.2), (9, 16, 0.1), (40, 32, 0.05), (5, 64, 0.05),
+    (16384, 128, 0.02), (1, 128, 0.02), (8, 128, 0.02), (3, 256, 0.01), (9, 2048, 0.002)])
+def test_compact_words_kernel_on_random_words_on_cuda(cuda, b, w, density):
+    """The topk mode's ``compact_words`` kernel against its twin on random
+    words, at each lane group the launch picks (1, 2, 4, 8, 16 and 32 lanes
+    a topic for W = 4 ... 128; the warp-a-topic kernel past 128), K below,
+    at and above W, the regrow's 64: the wire and the three arrays
+    ``torch.equal``, one launch a call."""
+    words = torch.from_numpy(_random_words(np.random.default_rng(b + w), b, w,
+                                           density)).to(cuda)
+    for k in sorted({1, 32, 64, w, w + 5}):
+        n0 = CT.compact_words.launches
+        wire = CT.compact_words(words, k)
+        torch.cuda.synchronize()
+        assert CT.compact_words.launches == n0 + 1
+        assert torch.equal(wire, CT.topk_wire_plain(words, k))
+        for g, want in zip(CT.split_topk_wire(wire, b, min(k, w)),
+                           CT.match_words_plain(words, k)):
+            assert torch.equal(g, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,w", [(16384, 128), (8, 32), (1, 4), (4, 2048)])
+def test_compact_words_one_kernel_a_call_on_cuda(cuda, b, w):
+    """One call of ``compact_words`` on the card is one kernel and nothing
+    else (``torch.profiler``): no sort, no top-k, no concatenation."""
+    from rmqtt_tpu_torch.bench.tail_kernels import ops_per_call
+
+    words = torch.from_numpy(_random_words(np.random.default_rng(w), b, w, 0.02)).to(cuda)
+    ops = ops_per_call(lambda: CT.compact_words(words, 32))
+    assert (ops["kernels"], ops["memsets"]) == (1, 0), ops
+
+
+@pytest.mark.cuda
+def test_compact_words_refuses_and_raises_on_cuda(cuda, monkeypatch):
+    """Given CUDA words ``compact_words`` launches its kernel or raises:
+    words the kernel does not take (not int32, not contiguous, W not a
+    multiple of 4, a start off 16-byte alignment) are refused first, and a
+    library that does not load raises ``KernelError`` with nothing run in
+    its place."""
+    import rmqtt_tpu_torch.ops._build as B
+
+    def broken():
+        raise B.KernelError("cannot load the kernel library")
+
+    words = torch.zeros((4, 64), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="int32"):
+        CT.compact_words(words.to(torch.int64), 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        CT.compact_words(words.t(), 8)
+    with pytest.raises(ValueError, match="W % 4"):
+        CT.compact_words(words[:, :62].contiguous(), 8)
+    with pytest.raises(ValueError, match="aligned"):
+        CT.compact_words(words.reshape(-1)[1:241].view(4, 60), 8)
+    monkeypatch.setattr(B, "kernel_library", broken)
+    n0 = CT.compact_words.launches
+    with pytest.raises(B.KernelError, match="cannot load"):
+        TP._topk_wire(words, 8)
+    assert CT.compact_words.launches == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,deep", [(1, 0), (2, 0), (33, 0), (64, 0), (33, 12), (5, 40)])
+def test_dense_inverse_on_ragged_tables_on_cuda(cuda, b, deep):
+    """The redesigned inverse (rows on lanes: 32 x 4 warps x 4 rows a block
+    at up to 8 levels, x 2 at up to 16, x 1 past) against its twin at B = 1,
+    2, 33 and 64 over tables whose row count is no multiple of a block's
+    rows (the case's rows cut by three words), and at L = 12 and 40."""
+    case = DenseCase(f"B={b}, L={deep or 'table'}", 700, b, b, deep)
+    rtok, rlen, rdollar, *batch = as_tensors(make_dense_case(case).inverse, cuda)
+    cut = (rtok.shape[0] // 32 - 3) * 32
+    args = (rtok[:cut].contiguous(), rlen[:cut].contiguous(), rdollar[:cut].contiguous(),
+            *batch)
+    n0 = DM.match_retained.launches
+    got = DM.match_retained(*args)
+    torch.cuda.synchronize()
+    assert DM.match_retained.launches == n0 + 1
+    want = DM.match_retained_plain(*args)
+    assert torch.equal(got, want) and bool((want != 0).any())
+
+
 def _routed(rows):
     return [sorted(r.topic_filter for rels in out.values() for r in rels)
             + sorted(tf for _g, tf in shared) for out, shared in rows]

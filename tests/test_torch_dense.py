@@ -279,6 +279,30 @@ def test_retained_scanner_equals_jax():
         assert np.array_equal(g, w) and g.tolist() == want, f
 
 
+@pytest.mark.parametrize("b", [1, 37])
+def test_match_retained_plain_equals_jax(b):
+    """The inverse's twin against the JAX ``match_retained_impl`` on the
+    same encoded arrays: one filter (a SUBSCRIBE's shape) and a batch that
+    is no multiple of 32, over 2,048 stored topics (some deeper than 8
+    levels, $SYS among them) with free rows between them."""
+    rng = random.Random(23 + b)
+    jt = JE.FilterTable()
+    words = ["a", "b", "c", "", "$SYS"]
+    while jt.size < 1500:
+        levels = [rng.choice(words) for _ in range(rng.randint(1, 10))]
+        jt.add("/".join(lv if i == 0 or lv != "$SYS" else "p" for i, lv in enumerate(levels)))
+    for fid in range(0, 1500, 9):
+        jt.remove(fid)
+    filters = (["+/#"] + _filters(rng, b))[:b]
+    enc = jt.encode_filters(filters)
+    rows = (jt.tok, jt.flen, jt.row_dollar)
+    want = JM._match_retained(*rows, *enc, nchunks=max(1, jt.capacity // 1024))
+    got = TM.match_retained_plain(*(torch.from_numpy(np.ascontiguousarray(a))
+                                    for a in (*rows, *enc)))
+    assert got.shape == (b, jt.capacity // 32)
+    assert np.array_equal(_u32(got.numpy()), _u32(want)) and bool((got != 0).any())
+
+
 def test_dense_router_equals_xla_router(monkeypatch):
     """``TorchRouter(backend="dense", device="cpu")`` against
     ``XlaRouter(backend="dense")``, every batch on the matcher."""

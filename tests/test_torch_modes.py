@@ -15,6 +15,7 @@ import pytest
 import torch
 
 import rmqtt_tpu.ops.partitioned as JP
+import rmqtt_tpu_torch.ops.compact_tail as CT
 import rmqtt_tpu_torch.ops.partitioned as TP
 from rmqtt_tpu_torch.core.topic import match_filter
 from rmqtt_tpu_torch.core.trie import TopicTree
@@ -47,20 +48,49 @@ def test_compact_global_equals_jax(b, w, budget, density):
     assert (n > budget) == (budget == 16) and (n == 0) == (density == 0.0)
 
 
-@pytest.mark.parametrize("w,max_words", [(128, 4), (16, 32), (128, 128)])
-def test_compact_words_equals_jax(w, max_words):
-    """``kw < w``, ``kw >= w`` and rows with fewer nonzero words than
-    ``kw``: word_idx is bit-identical in the zero slots too."""
+def _compact_words_case(w, max_words):
+    """9 topics of ``w`` words: an all-zero row, a row with ``w / 2``
+    nonzero words (more than ``max_words`` where it is below that) and
+    sparse random rows → (words, JAX's three arrays)."""
     rng = np.random.default_rng(w + max_words)
-    words = _words(rng, 9, w, 0.002)
+    words = _words(rng, 9, w, 0.05 if w <= 16 else 0.002)
     words[0] = 0
     words[1, : w // 2] = 0xFFFFFFFF
     want = jax.jit(JP.compact_words_impl, static_argnums=1)(words, max_words)
-    got = TP.compact_words(_t(words), max_words)
-    for j, g in zip(want, got):
-        j = np.asarray(j)
-        g = g.numpy().view(j.dtype)
-        assert g.shape == j.shape and np.array_equal(g, j)
+    return words, [np.asarray(j) for j in want]
+
+
+@pytest.mark.parametrize("w,max_words", [(128, 4), (16, 32), (128, 128), (4, 1), (4, 4),
+                                         (4, 9), (16, 3), (16, 16), (128, 32), (128, 200)])
+def test_compact_words_equals_jax(w, max_words):
+    """``kw`` below, at and above ``w`` (W = 4, 16 and 128), an all-zero row
+    and a row with more nonzero words than ``kw``: the twin and the
+    wrapper on CPU tensors give JAX's arrays bit for bit, word_idx in the
+    zero slots too."""
+    words, want = _compact_words_case(w, max_words)
+    n0 = CT.compact_words.launches
+    wire = TP.compact_words(_t(words), max_words)
+    for got in (CT.split_topk_wire(wire, words.shape[0], min(w, max_words)),
+                CT.match_words_plain(_t(words), max_words)):
+        for j, g in zip(want, got):
+            g = g.numpy().view(j.dtype)
+            assert g.shape == j.shape and np.array_equal(g, j)
+    assert CT.compact_words.launches == n0  # a CPU tensor runs the twin
+
+
+@pytest.mark.parametrize("w,max_words", [(4, 8), (128, 32)])
+def test_topk_wire_slices_equal_jax(w, max_words):
+    """``_topk_wire``'s one int32 wire: its three slices are JAX's
+    ``word_idx``, ``word_bits`` and ``counts``, with and without the
+    kernel flag (the CPU runs the twin either way)."""
+    words, want = _compact_words_case(w, max_words)
+    b, kw = words.shape[0], min(w, max_words)
+    for use_kernel in (True, False):
+        wire = TP._topk_wire(_t(words), max_words, use_kernel)
+        assert wire.dtype == torch.int32 and wire.numel() == 2 * b * kw + b
+        for j, g in zip(want, CT.split_topk_wire(wire, b, kw)):
+            g = g.numpy().view(j.dtype)
+            assert g.shape == j.shape and np.array_equal(g, j)
 
 
 def _filters(rng, n, seen):
